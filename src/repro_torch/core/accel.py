@@ -17,6 +17,10 @@ columns go up and the results come back, with one wait for the card.  On
 a CUDA device the ops launch the CUDA kernels; on the CPU they run their
 plain torch versions.
 
+The adaptive tracker (``core/adaptive/``) routes its sketch and histogram
+updates itself, through the same policy, on the device the store passes
+down; ``op_timer`` times its observation as one op class.
+
 Wall-clock spent inside routed ops is emitted to the observer as a
 ``kernel_<op>_us`` histogram per fused op class (real host microseconds,
 not simulated time).
@@ -24,6 +28,7 @@ not simulated time).
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -72,6 +77,20 @@ def resolve_device(device) -> torch.device:
 def _emit(store, opclass: str, t0: float) -> None:
     store.obs.on_op(store, f"kernel_{opclass}_us",
                     (time.perf_counter() - t0) * 1e6)
+
+
+@contextlib.contextmanager
+def op_timer(store, opclass: str):
+    """Time a fused-op region (host + kernel work) into the observer's
+    ``kernel_<opclass>_us`` histogram; no-op while kernels are off."""
+    if not policy_of(store.cfg).enabled:
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        _emit(store, opclass, t0)
 
 
 # ------------------------------------------------------------ read path

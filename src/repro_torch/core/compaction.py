@@ -170,6 +170,8 @@ def run_compaction(store, level: int, base_level: int) -> None:
     outs = _cut_outputs(store, kept)
     for t in outs:
         store.io.seq_write(t.file_bytes, sio.CAT_COMPACT_WRITE)
+    store._crashpoint("mid_compaction")   # outputs written, version not yet
+    #                                       updated (DESIGN.md §9)
 
     # ---- version update ----
     if level == 0:
@@ -181,6 +183,12 @@ def run_compaction(store, level: int, base_level: int) -> None:
     v.set_level(out_level, remain + outs)
     for t in inputs:
         store.cache.erase_file(t.fid)
+    if store.durability is not None:
+        for t in inputs:
+            store._log_edit("drop_file", fid=t.fid)
+        for t in outs:
+            store._log_edit("add_file", fid=t.fid, level=out_level,
+                            nbytes=t.file_bytes)
 
     # ---- garbage exposure + DropCache (paper §II-D, §III-B.3) ----
     dk, de, dvid, dvsz, dvf = dropped

@@ -18,11 +18,11 @@ from __future__ import annotations
 
 import dataclasses
 
-# The engines this package runs (the five paper engines + hybrid), in the
-# port registry's order (``repro_torch.core.engines``).  The reference's
-# seventh engine, scavenger_adaptive, is not ported yet: the registry
-# raises NotImplementedError for it.
-ENGINES = ("rocksdb", "blobdb", "titan", "terarkdb", "scavenger", "hybrid")
+# The engines this package runs (the five paper engines + hybrid +
+# scavenger_adaptive), in the port registry's order
+# (``repro_torch.core.engines``), the reference's order too.
+ENGINES = ("rocksdb", "blobdb", "titan", "terarkdb", "scavenger", "hybrid",
+           "scavenger_adaptive")
 
 
 @dataclasses.dataclass
@@ -143,8 +143,7 @@ class EngineConfig:
         # lazy import: the strategy modules import table/IO substrate, which
         # imports this module — resolving at construction breaks the cycle
         from ..engines import get_strategy_class
-        strat = get_strategy_class(self.engine)   # raises on unknown or
-        #                                           not-yet-ported engine
+        strat = get_strategy_class(self.engine)   # raises on unknown engine
         self.kv_separated = strat.kv_separated
         if self.gc_scheme is None:
             self.gc_scheme = strat.gc_schemes[0]

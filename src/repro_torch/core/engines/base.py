@@ -42,8 +42,9 @@ class EngineStrategy:
     hotcold_write: bool = False
     adaptive_enabled: bool = False    # workload tracker (core/adaptive/)
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, device=None):
         self.cfg = cfg
+        self.device = device    # the store's device, for routed state
 
     # ============================================== workload observation
     def observe_batch(self, store, kind: str, keys, vsizes=None) -> None:
@@ -182,6 +183,9 @@ class EngineStrategy:
                 store.version.retire_value_file(t.fid, None)
                 store.chains[t.fid] = group
                 store.cache.erase_file(t.fid)
+            store._log_edit("chain_update",
+                            retired=[t.fid for t in candidates],
+                            group=[t.fid for t in new_files])
         else:  # titan writeback: index rewrites as one batched write
             store.writeback_index_batch(vkeys, vvids, vvsz, new_fid_per_rec)
             for t in candidates:
@@ -189,3 +193,6 @@ class EngineStrategy:
                 store.cache.erase_file(t.fid)
         for t in candidates:
             store.obs.on_space(store, "retire", t.file_bytes)
+        if store.durability is not None:
+            for t in candidates:
+                store._log_edit("retire_value_file", fid=t.fid)

@@ -84,6 +84,7 @@ class BlobDBEngine(EngineStrategy):
                         if t.live_refs <= 0:
                             store.version.retire_value_file(t.fid, None)
                             store.cache.erase_file(t.fid)
+                            store._log_edit("retire_value_file", fid=t.fid)
                             store.obs.on_space(store, "retire", t.file_bytes)
                 vf[i] = nf
         return (keys, seqs, ety, vids, vsz, vf)

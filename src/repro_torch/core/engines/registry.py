@@ -11,10 +11,6 @@ from .base import EngineStrategy
 
 _REGISTRY: dict[str, type[EngineStrategy]] = {}
 
-# engines of the reference package that this package does not run yet
-NOT_PORTED = ("scavenger_adaptive",)
-
-
 def register_engine(cls: type[EngineStrategy]) -> type[EngineStrategy]:
     """Class decorator: register a strategy under its ``name``."""
     if not cls.name or cls.name == "base":
@@ -29,10 +25,6 @@ def register_engine(cls: type[EngineStrategy]) -> type[EngineStrategy]:
 
 
 def get_strategy_class(name: str) -> type[EngineStrategy]:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"engine {name!r} is not ported yet; ported engines: "
-            f"{', '.join(_REGISTRY)}")
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -41,8 +33,10 @@ def get_strategy_class(name: str) -> type[EngineStrategy]:
             f"{', '.join(sorted(_REGISTRY))}") from None
 
 
-def make_strategy(cfg) -> EngineStrategy:
-    return get_strategy_class(cfg.engine)(cfg)
+def make_strategy(cfg, device=None) -> EngineStrategy:
+    """The strategy ``cfg`` names; routed state (the adaptive tracker's
+    batches) runs on ``device``."""
+    return get_strategy_class(cfg.engine)(cfg, device)
 
 
 def available_engines() -> tuple[str, ...]:

@@ -98,10 +98,14 @@ def run_gc(store, candidates: list[SSTable]) -> None:
         vkeys, vvids, vvsz = vkeys[order], vvids[order], vvsz[order]
         new_files, new_fid_per_rec = store.build_value_files(
             vkeys, vvids, vvsz, sio.CAT_GC_WRITE)
+        store._crashpoint("gc_pre_chain")    # outputs written, chains /
+        #                                      registry not yet updated
 
         # --------------------------------- 5. retire candidates / writeback
         strat.gc_finalize(store, candidates, new_files, vkeys, vvids, vvsz,
                           new_fid_per_rec)
+        store._crashpoint("gc_post_chain")   # chain update durable in the
+        #                                      MANIFEST, run counter not yet
 
         store.n_gc_runs += 1
         rewrite = sum(t.file_bytes for t in new_files)

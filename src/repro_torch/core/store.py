@@ -1,12 +1,15 @@
-"""KVStore facade (port of ``repro.core.store``): six selectable engines
+"""KVStore facade (port of ``repro.core.store``): seven selectable engines
 over one layered substrate.
 
 ``Store(EngineConfig(engine=...))`` gives RocksDB-, BlobDB-, Titan-,
-TerarkDB-, Scavenger- or hybrid-semantics over the same deterministic
-simulated device, so every paper comparison is apples-to-apples.  The
-store's ``device`` (CUDA unless the caller names another) holds the
-immutable key columns the batched probes run on (``core/accel.py``).
-Durability, sharding and recording observers are not ported yet.
+TerarkDB-, Scavenger-, hybrid- or adaptive-Scavenger-semantics over the
+same deterministic simulated device, so every paper comparison is
+apples-to-apples.  The store's ``device`` (CUDA unless the caller names
+another) holds the immutable key columns the batched probes run on
+(``core/accel.py``) and runs the adaptive tracker's routed batches.
+Durability (``durability_dir``, ``checkpoint``, ``Store.open``) writes the
+reference's on-disk format.  Sharding and recording observers are not
+ported yet.
 
 The facade owns scheduling and the write path; everything else is layered
 (DESIGN.md §7):
@@ -62,8 +65,6 @@ __all__ = ["Store"]
 class Store(ScalarOps):
     def __init__(self, cfg: EngineConfig, io: SimIO | None = None,
                  durability_dir=None, *, device=None):
-        if durability_dir is not None:
-            raise NotImplementedError("durability is not ported yet")
         if cfg.observer is not None:
             raise NotImplementedError("recording observers are not ported "
                                       "yet; leave EngineConfig.observer None")
@@ -72,7 +73,7 @@ class Store(ScalarOps):
         self.device = accel.resolve_device(device)
         # device copies of immutable key columns, one per host array
         self.dev_cache = DeviceCache(self.device)
-        self.strategy = make_strategy(cfg)
+        self.strategy = make_strategy(cfg, self.device)
         self.io = io or SimIO()
         self.cache = BlockCache(cfg.cache_bytes, cfg.cache_high_frac)
         self.dropcache = DropCache(cfg.dropcache_keys)
@@ -86,6 +87,14 @@ class Store(ScalarOps):
         self.in_batch_write = False
         self.compact_cursor: dict[int, int] = {}
         self._last_bg = "gc"
+        # Durability (DESIGN.md §9): off by default — None costs one
+        # attribute check per event and zero simulated device time.
+        self.durability = None
+        self.wal_index = 0              # monotone journal-record watermark
+        self._crash_hooks: dict | None = None
+        if durability_dir is not None:
+            from .durability import Durability
+            self.durability = Durability.create(durability_dir, cfg)
 
         # stats / bookkeeping
         self.latest = LatestOracle()         # measurement-only oracle for
@@ -147,6 +156,14 @@ class Store(ScalarOps):
             self.io.seq_write(total, sio.CAT_WAL)  # one group-committed
             #                                        append
             self.obs.instant(self, "wal_append", nbytes=total, n=n)
+            if self.durability is not None:
+                # host-side persistence of the same batch the simulated WAL
+                # append just charged; costs zero simulated time (§9)
+                self.wal_index += 1
+                self.durability.log_batch(self.wal_index, self.seq - n + 1,
+                                          kinds, keys, vsizes)
+            if self._crash_hooks is not None:
+                self._crashpoint("after_wal")
             self.user_write_bytes += total
             self.n_user_ops += n
 
@@ -181,6 +198,75 @@ class Store(ScalarOps):
         self.obs.tick(self)
         return vids_out
 
+    def ingest_batch(self, kinds: np.ndarray, keys: np.ndarray,
+                     vids: np.ndarray, vsizes: np.ndarray) -> None:
+        """Apply records that already own their value identity (WAL
+        replay of an ``"i"`` record; in the reference also shard
+        migration and replica-log replay, DESIGN.md §14).
+
+        Same simulated device costs and memtable path as ``write`` — one
+        group-committed WAL append, chunked insertion, write-pressure
+        stalls — and fresh sequence numbers, but the given ``vids`` are
+        preserved and nothing is counted as a *user* write
+        (``user_write_bytes`` feeds write-amp denominators; migrated bytes
+        are amplification, not ingest)."""
+        cfg = self.cfg
+        kinds = np.asarray(kinds, np.uint8)
+        keys = np.asarray(keys, np.uint64)
+        vids = np.asarray(vids, np.uint64)
+        vsizes = np.asarray(vsizes, np.int64)
+        n = len(keys)
+        if n == 0:
+            return
+        if self.durability is not None:
+            self.wal_index += 1
+            self.durability.log_ingest(self.wal_index, kinds, keys, vids,
+                                       vsizes)
+        with self.obs.span(self, "ingest", n=n):
+            is_put = kinds == OP_PUT
+            recs = np.where(is_put,
+                            cfg.key_bytes + vsizes + cfg.wal_rec_overhead,
+                            cfg.key_bytes
+                            + cfg.wal_rec_overhead).astype(np.int64)
+            total = int(recs.sum())
+            seqs = np.uint64(self.seq + 1) + np.arange(n, dtype=np.uint64)
+            self.seq += n
+            if is_put.any():
+                # keep future mints ahead of every preserved vid so an
+                # ingested record and a later local write never collide on
+                # the same (key, vid)
+                self.next_vid = max(self.next_vid,
+                                    int(vids[is_put].max()) + 1)
+            self.io.seq_write(total, sio.CAT_WAL)
+            self.obs.instant(self, "ingest_append", nbytes=total, n=n)
+            ety = np.where(is_put, ETYPE_INLINE, ETYPE_TOMB).astype(np.uint8)
+            vsz = np.where(is_put, vsizes, 0).astype(np.int64)
+            use_vids = np.where(is_put, vids, 0).astype(np.uint64)
+            vf = np.full(n, -1, np.int64)
+            entry_bytes = self.memtable.entry_bytes_batch(ety, vsz)
+            self.in_batch_write = True
+            try:
+                i = 0
+                while i < n:
+                    i += self.memtable.put_batch(keys[i:], seqs[i:], ety[i:],
+                                                 use_vids[i:], vsz[i:],
+                                                 vf[i:], entry_bytes[i:])
+                    if self.memtable.full and i < n:
+                        self.immutables.append(self.memtable)
+                        self.memtable = Memtable(cfg)
+                        self.pump()
+                        self._stall_while(
+                            lambda: len(self.immutables) > cfg.max_immutables,
+                            trigger="memtable_stall")
+            finally:
+                self.in_batch_write = False
+            self.latest.apply_batch(is_put, keys, use_vids, vsz)
+            self.strategy.observe_batch(self, "write", keys, vsz)
+            self._after_write(total)
+        self.obs.on_op(self, "ingest_batch_n", n)
+        self.obs.on_op(self, "ingest_batch_bytes", total)
+        self.obs.tick(self)
+
     # -------------------------------------------------------- batched reads
     def multi_get(self, keys: np.ndarray) -> dict:
         """Columnar point lookups for a whole key array.
@@ -194,6 +280,12 @@ class Store(ScalarOps):
         keys = np.atleast_1d(np.asarray(keys, np.uint64))
         n = len(keys)
         self.n_user_ops += n
+        if self.durability is not None:
+            # reads are journaled too: under the two-lane clock they move
+            # background scheduling, so byte-identical recovery must replay
+            # them (DESIGN.md §9)
+            self.wal_index += 1
+            self.durability.log_reads(self.wal_index, keys)
         with self.obs.span(self, "multi_get", n=n), self.io.batched(n):
             res = self.lookup_entries(keys, sio.CAT_FG_READ)
             live = res["found"] & (res["etype"] != ETYPE_TOMB)
@@ -221,6 +313,9 @@ class Store(ScalarOps):
         counts = np.broadcast_to(np.asarray(count, np.int64),
                                  starts.shape)
         self.n_user_ops += len(starts)
+        if self.durability is not None:
+            self.wal_index += 1
+            self.durability.log_scans(self.wal_index, starts, counts)
         out = []
         with self.obs.span(self, "multi_scan", n=len(starts)), \
                 self.io.batched(len(starts)):
@@ -275,7 +370,8 @@ class Store(ScalarOps):
         if policy is not None:
             cause["policy"] = policy
         try:
-            # span on the job's lane
+            # span on the job's lane: an injected CrashPoint still records
+            # the partial span (the with-block exits), keeping lane tiling
             with self.obs.span(self, job[0], lane=lane, cause=cause):
                 if job[0] == "flush":
                     self._flush_job()
@@ -347,16 +443,80 @@ class Store(ScalarOps):
             self.io.lanes[k] = m
             self.obs.lane_sync(self, k, t0)
 
-    # ======================================== durability (not ported yet)
+    # ========================================= durability (DESIGN.md §9)
     def checkpoint(self, path=None):
-        raise NotImplementedError("durability is not ported yet")
+        """Write a full-state snapshot.
+
+        With a durable store (``durability_dir``) and no ``path``: snapshot
+        into the store directory, roll the WAL, and record the checkpoint
+        in the MANIFEST.  With ``path``: write a standalone snapshot file
+        (restorable via ``Store.open(path)``), usable without a durable
+        directory."""
+        if path is not None:
+            from .durability import snapshot as dsnap
+            self.obs.instant(self, "checkpoint", path=str(path))
+            return dsnap.write_snapshot(self, path)
+        if self.durability is None:
+            raise ValueError("store has no durability directory; pass a "
+                             "snapshot path or open with durability_dir")
+        self.obs.instant(self, "checkpoint", seq=int(self.seq))
+        return self.durability.checkpoint(self)
 
     @classmethod
-    def open(cls, path, io: SimIO | None = None, observer=None) -> "Store":
-        raise NotImplementedError("durability is not ported yet")
+    def open(cls, path, io: SimIO | None = None, observer=None, *,
+             device=None) -> "Store":
+        """Recover a store: restore the latest checkpoint snapshot, then
+        replay the WAL tail through the columnar write path (``path`` may
+        also be a bare snapshot file — restore only).  The recovered store
+        runs on ``device``: CUDA unless the caller names one, raising
+        without it, as ``Store(...)`` does.  The directory may have been
+        written by either package."""
+        if observer is not None:
+            raise NotImplementedError("recording observers are not ported "
+                                      "yet; leave observer None")
+        from .durability import recover_store
+        return recover_store(path, io=io, cls=cls, device=device)
+
+    def close(self) -> None:
+        """Flush and close durable logs (no-op for in-memory stores)."""
+        if self.durability is not None:
+            self.durability.close()
+
+    def _log_edit(self, kind: str, **data) -> None:
+        """Append a MANIFEST VersionEdit (no-op when durability is off).
+
+        The host-side byte cost of the edit is reported to the observer
+        (ledger §13: MANIFEST bytes decompose by cause like device bytes)."""
+        if self.durability is not None:
+            before = self.durability.manifest.bytes_written
+            self.durability.log_edit(kind, **data)
+            self.obs.on_edit(self, kind,
+                             self.durability.manifest.bytes_written - before)
 
     def arm_crash(self, point: str, hits: int = 1) -> None:
-        raise NotImplementedError("durability is not ported yet")
+        """Crash-injection: raise ``CrashPoint`` at the ``hits``-th pass
+        through the named hook (see ``durability.CRASH_POINTS``; the four
+        fleet points fire only in a sharded store, not ported yet)."""
+        from .durability import CRASH_POINTS
+        if point not in CRASH_POINTS:
+            raise ValueError(f"unknown crash point {point!r} "
+                             f"(want one of {CRASH_POINTS})")
+        if self._crash_hooks is None:
+            self._crash_hooks = {}
+        self._crash_hooks[point] = int(hits)
+
+    def _crashpoint(self, point: str) -> None:
+        hooks = self._crash_hooks
+        if hooks is None:
+            return
+        left = hooks.get(point)
+        if left is None:
+            return
+        if left <= 1:
+            del hooks[point]            # disarm: the process died here once
+            from .durability import CrashPoint
+            raise CrashPoint(point)
+        hooks[point] = left - 1
 
     # ------------------------------------------------------ write pressure
     def _after_write(self, rec_bytes: int) -> None:
@@ -430,8 +590,10 @@ class Store(ScalarOps):
             vf[idx] = fids
         t = SSTable(cfg, "k", cfg.ksst_layout, keys, seqs, ety, vids, vsz, vf)
         t.compensated_extra = int(vsz[ety == ETYPE_REF].sum())
+        self._crashpoint("mid_flush")   # vSSTs cut, kSST not yet live
         self.io.seq_write(t.file_bytes, sio.CAT_FLUSH)
         self.version.add_l0(t)
+        self._log_edit("add_file", fid=t.fid, level=0, nbytes=t.file_bytes)
 
     def rotate_memtable(self) -> None:
         """Force the active memtable immutable (no background work)."""
@@ -441,6 +603,9 @@ class Store(ScalarOps):
 
     def flush(self) -> None:
         """Force-rotate the memtable and drain all background work."""
+        if self.durability is not None:
+            self.wal_index += 1
+            self.durability.log_flush(self.wal_index)
         self.rotate_memtable()
         self.drain()
 

@@ -58,6 +58,8 @@ def build_value_files(store, keys, vids, vsizes, cat: str):
                                temperature=temp)
                 store.version.add_value_file(t)
                 store.io.seq_write(t.file_bytes, cat)
+                store._log_edit("add_value_file", fid=t.fid,
+                                nbytes=t.file_bytes, temperature=int(temp))
                 store.obs.on_space(store, "vsst_add", t.file_bytes)
                 fid_per_rec[m] = t.fid
                 files.append(t)

@@ -51,5 +51,6 @@ def expose_garbage(store, keys, ety, vids, vsizes, vfiles) -> None:
             t.live_refs -= nhit
             if t.live_refs <= 0:
                 store.version.retire_value_file(t.fid, None)
+                store._log_edit("retire_value_file", fid=t.fid)
                 store.obs.on_space(store, "retire", t.file_bytes)
                 store.cache.erase_file(t.fid)

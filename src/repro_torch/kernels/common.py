@@ -1,5 +1,6 @@
 """Shared pieces of the CUDA kernels: the library build, the u64 order
-helper and the device cache of immutable host columns.
+helper, host<->device column copies and the device cache of immutable
+host columns.
 
 Build: ``csrc/kernels.cu`` holds every kernel behind a plain C interface.
 ``library()`` compiles it with ``nvcc`` for ``sm_90a`` into ``_build/``
@@ -93,6 +94,8 @@ _SIGNATURES = {
     "lookup_probe": (_P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _P, _P),
     "count_le": (_P, _I64, _P, _I64, _P, _I64, _P, _P),
     "run_coalesce": (_P, _P, _I64, _I64, _P, _I64, _P, _P, _P, _P, _P),
+    "segment_sum": (_P, _I64, _I64, _P, _P),
+    "gather_min64": (_P, _I64, _I64, _P, _I64, _P, _P),
 }
 
 

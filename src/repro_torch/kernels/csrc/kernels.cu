@@ -1,4 +1,5 @@
-// Scavenger's lookup and fetch-planning kernels for Hopper (sm_90a).
+// Scavenger's lookup, fetch-planning and adaptive-tracker kernels for
+// Hopper (sm_90a).
 //
 // Plain C interface, loaded with ctypes (repro_torch/kernels/common.py).
 // Every entry point launches on the caller's stream, allocates nothing,
@@ -272,6 +273,54 @@ mark_kernel(const u64* __restrict__ s, i64 m, i64 window,
   mark_runs(s, m, window, rank_s, pos_s, keep, start);
 }
 
+// ---------------------------------------------------------------------------
+// segment_sum: replaces segment_sum_pallas (src/repro/kernels/segment_reduce/
+// kernel.py:47).  out[s] = #{i : ids[i] == s} for s in [0, n_slots); ids
+// outside that range (the reference masks with -1) are ignored.
+//
+// Bound: latency.  The adaptive tracker's batches are a few thousand ids
+// into a few thousand to 32K slots (64-256 KB), so the bytes bound is
+// well under a microsecond and one launch plus one memset set the time.
+// The TPU kernel one-hot-compared every id against every slot tile (no
+// vector scatter-add there); here each thread adds its id's one into the
+// zeroed output with a 64-bit atomicAdd.  Integer adds commute, so the
+// counts are exact whatever order the atomics land in.
+__global__ void segment_sum_kernel(const i64* __restrict__ ids, i64 n,
+                                   i64 n_slots, u64* __restrict__ out) {
+  i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  i64 s = ids[i];
+  if (s >= 0 && s < n_slots) atomicAdd(&out[s], 1ull);
+}
+
+// ---------------------------------------------------------------------------
+// gather_min64: replaces gather_min64_pallas (segment_reduce/kernel.py:93).
+// out[q] = min over rows r of bits[r, idx[q, r]], the count-min estimate
+// of the adaptive sketch.  The float64 counters arrive as their 64-bit
+// patterns and are compared as unsigned integers: that order is exactly
+// the reference's lexicographic (hi, lo) u32 compare, for every pattern
+// (for the sketch's non-negative doubles it is also the numeric order,
+// and unlike fmin it never picks between +0 and -0).  An index outside
+// [0, w) fetches the pattern 0.
+//
+// Bound: latency.  Q queries x D (<= 4) dependent-free gathers from a
+// D x W table of at most a few hundred KB, L2-resident.  Design: one thread
+// per query; the D gathers issue back to back and reduce in registers.
+__global__ void gather_min64_kernel(const u64* __restrict__ bits, i64 d,
+                                    i64 w, const i64* __restrict__ idx,
+                                    i64 nq, u64* __restrict__ out) {
+  i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nq) return;
+  const i64* row = idx + i * d;
+  u64 best = ~0ull;
+  for (i64 r = 0; r < d; ++r) {
+    i64 j = row[r];
+    u64 v = (j >= 0 && j < w) ? bits[r * w + j] : 0ull;
+    best = v < best ? v : best;
+  }
+  out[i] = best;
+}
+
 inline unsigned blocks_for(i64 n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
@@ -353,6 +402,28 @@ int run_coalesce(const void* rank, const void* pos, i64 m, i64 mp,
   }
   mark_kernel<<<1, kCoalesceThreads, 0, st>>>(
       s, m, window, (i64*)rank_s, (i64*)pos_s, (bool*)keep, (bool*)start);
+  return (int)cudaGetLastError();
+}
+
+// out: n_slots int64 counters, zeroed here on the stream before the adds.
+int segment_sum(const void* ids, i64 n, i64 n_slots, void* out,
+                void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(out, 0, (size_t)n_slots * sizeof(u64),
+                                    st);
+  if (err != cudaSuccess) return (int)err;
+  if (n == 0) return (int)cudaGetLastError();
+  segment_sum_kernel<<<blocks_for(n, kProbeThreads), kProbeThreads, 0, st>>>(
+      (const i64*)ids, n, n_slots, (u64*)out);
+  return (int)cudaGetLastError();
+}
+
+// bits: d x w row-major 64-bit patterns (d >= 1); idx: nq x d.
+int gather_min64(const void* bits, i64 d, i64 w, const void* idx, i64 nq,
+                 void* out, void* stream) {
+  gather_min64_kernel<<<blocks_for(nq, kProbeThreads), kProbeThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const u64*)bits, d, w, (const i64*)idx, nq, (u64*)out);
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,8 @@
 * A kernel wrapper given CUDA tensors launches its kernel or raises; it
   never runs the plain version.  No card here, so the tensors only report
   a CUDA device and the launch is mocked.
-* The slice's not-yet-ported surfaces raise.
+* The not-yet-ported surfaces (recording observers) raise; the ported
+  seventh engine and durability do not.
 * A reference ``EngineConfig.state_dict()`` carries over unchanged.
 """
 
@@ -26,6 +27,7 @@ import repro.core as R
 import repro_torch.core as T
 from repro_torch.kernels.lookup_probe import ops as probe_ops
 from repro_torch.kernels.run_coalesce import ops as coalesce_ops
+from repro_torch.kernels.segment_reduce import ops as segment_ops
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
@@ -52,22 +54,30 @@ def test_port_source_imports_no_jax_or_reference(path):
 
 
 def test_port_import_and_run_load_no_jax_or_reference():
-    """Import every port module and chip_smoke, drive a small store with
-    kernels on, and list the modules a fresh interpreter then holds."""
+    """Import every port module and chip_smoke, drive a small durable
+    adaptive store with kernels on through a checkpoint and a recovery,
+    and list the modules a fresh interpreter then holds."""
     code = r"""
-import importlib, json, pkgutil, sys
+import importlib, json, pkgutil, sys, tempfile
 import numpy as np
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 from repro_torch.core import EngineConfig, Store, WriteBatch
-s = Store(EngineConfig.scaled("scavenger", 1 << 20, kernel_min_batch=1),
-          device="cpu")
 keys = np.arange(2000, dtype=np.uint64) * np.uint64(1 << 33)
-s.write(WriteBatch().puts(keys, np.full(2000, 1024, np.int64)))
-s.multi_get(keys)
-s.multi_scan(np.array([0], np.int64), 5)
+with tempfile.TemporaryDirectory() as d:
+    s = Store(EngineConfig.scaled("scavenger_adaptive", 1 << 20,
+                                  kernel_min_batch=1),
+              durability_dir=d, device="cpu")
+    s.write(WriteBatch().puts(keys, np.full(2000, 1024, np.int64)))
+    s.checkpoint()
+    s.multi_get(keys)
+    s.multi_scan(np.array([0], np.int64), 5)
+    s.close()
+    r = Store.open(d, device="cpu")
+    r.multi_get(keys)
+    r.close()
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
 """
@@ -119,7 +129,7 @@ def mocked_library(monkeypatch):
     def plain(*a, **k):
         raise AssertionError("a CUDA operand reached the plain version")
 
-    for mod in (probe_ops, coalesce_ops):
+    for mod in (probe_ops, coalesce_ops, segment_ops):
         monkeypatch.setattr(mod, "launch", launch)
         monkeypatch.setattr(mod, "outputs", cpu_outputs)
     monkeypatch.setattr(coalesce_ops, "smem_sort_cap", lambda: 8192)
@@ -127,21 +137,28 @@ def mocked_library(monkeypatch):
                  "interval_rank_ref"):
         monkeypatch.setattr(probe_ops, name, plain)
     monkeypatch.setattr(coalesce_ops, "run_coalesce_ref", plain)
+    for name in ("segment_sum_ref", "gather_min64_ref"):
+        monkeypatch.setattr(segment_ops, name, plain)
     for fn in (probe_ops.rank_probe, probe_ops.lookup_probe,
-               probe_ops.count_le, coalesce_ops.run_coalesce):
+               probe_ops.count_le, coalesce_ops.run_coalesce,
+               segment_ops.segment_sum, segment_ops.gather_min64):
         monkeypatch.setattr(fn, "launches", 0)
     return launched
 
 
 @pytest.mark.parametrize("kernel", ["rank_probe", "lookup_probe",
-                                    "count_le", "run_coalesce"])
+                                    "count_le", "run_coalesce",
+                                    "segment_sum", "gather_min64"])
 def test_cuda_operands_launch_the_kernel(mocked_library, kernel):
     q = _cuda_looking([3, 1, 2])
     run = _cuda_looking([1, 2, 5, 9])
     args = {"rank_probe": (q, run), "count_le": (q, run),
             "lookup_probe": (q, run, _cuda_looking(np.zeros((3, 7))), run),
-            "run_coalesce": (q, q)}[kernel]
-    mod = coalesce_ops if kernel == "run_coalesce" else probe_ops
+            "run_coalesce": (q, q), "segment_sum": (q, 8),
+            "gather_min64": (_cuda_looking(np.zeros((2, 5))),
+                             _cuda_looking(np.zeros((3, 2))))}[kernel]
+    mod = {"run_coalesce": coalesce_ops, "segment_sum": segment_ops,
+           "gather_min64": segment_ops}.get(kernel, probe_ops)
     fn = getattr(mod, kernel)
     fn(*args)
     assert mocked_library == [kernel]
@@ -170,28 +187,45 @@ def test_kernels_build_nothing_at_import():
     assert common.library.cache_info().currsize == 0
 
 
-# ------------------------------------------------------ not ported (yet)
-def test_adaptive_engine_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        T.EngineConfig(engine="scavenger_adaptive")
+# --------------------------------------- engines, durability, observers
+def test_all_seven_engines_registered():
+    """The registry runs all seven reference engines, in the reference's
+    order; an unknown name still raises."""
+    assert T.available_engines() == T.ENGINES == R.ENGINES
+    assert T.EngineConfig(engine="scavenger_adaptive").adaptive_enabled
     with pytest.raises(ValueError, match="unknown engine"):
         T.EngineConfig(engine="no_such_engine")
-    assert T.available_engines() == T.ENGINES
 
 
-def test_durability_and_observers_are_not_ported(tmp_path):
+def test_durability_works_and_recording_observers_raise(tmp_path):
+    """Durability is ported; recording observers still raise, on both the
+    constructor and the recovery path."""
     cfg = T.EngineConfig.scaled("scavenger", 1 << 20)
-    with pytest.raises(NotImplementedError, match="durability"):
-        T.Store(cfg, durability_dir=tmp_path, device="cpu")
-    store = T.Store(cfg, device="cpu")
-    for call in (lambda: store.checkpoint(tmp_path / "snap"),
-                 lambda: T.Store.open(tmp_path),
-                 lambda: store.arm_crash("after_wal")):
-        with pytest.raises(NotImplementedError, match="durability"):
-            call()
+    store = T.Store(cfg, durability_dir=tmp_path / "d", device="cpu")
+    store.write(T.WriteBatch().puts(np.arange(4, dtype=np.uint64),
+                                    np.full(4, 1024, np.int64)))
+    store.checkpoint(tmp_path / "snap")
+    store.close()
+    assert T.Store.open(tmp_path / "snap", device="cpu").stats() \
+        == store.stats()
+    with pytest.raises(ValueError, match="unknown crash point"):
+        store.arm_crash("nonsense")
     with pytest.raises(NotImplementedError, match="observer"):
         T.Store(T.EngineConfig.scaled("scavenger", 1 << 20,
                                       observer=object()), device="cpu")
+    with pytest.raises(NotImplementedError, match="observer"):
+        T.Store.open(tmp_path / "d", observer=object(), device="cpu")
+
+
+def test_open_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = T.EngineConfig.scaled("scavenger_adaptive", 1 << 20)
+    T.Store(cfg, durability_dir=tmp_path, device="cpu").close()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.Store.open(tmp_path)
+    store = T.Store.open(tmp_path, device="cpu")
+    assert store.device == torch.device("cpu")
+    assert store.strategy.tracker.writes.device == torch.device("cpu")
 
 
 # -------------------------------------------------- configuration carry

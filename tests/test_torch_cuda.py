@@ -77,7 +77,51 @@ def test_run_coalesce_matches_plain(cuda, m, window):
            K.run_coalesce_ref(r, p, window))
 
 
-@pytest.mark.parametrize("engine", ["titan", "scavenger"])
+@pytest.mark.parametrize("m,slots", [(0, 8), (1, 1), (13, 7), (300, 64),
+                                     (8192, 8192), (1024, 32768), (5, 0)])
+def test_segment_sum_matches_plain(cuda, m, slots):
+    rng = np.random.default_rng(m + slots)
+    ids = torch.from_numpy(rng.integers(-1, slots + 2, m)).to(cuda)
+    _equal((K.segment_sum(ids, slots),), (K.segment_sum_ref(ids, slots),))
+
+
+@pytest.mark.parametrize("d,w,q", [(1, 1, 1), (2, 50, 33), (4, 100, 64),
+                                   (3, 7, 1), (2, 4096, 4096)])
+def test_gather_min64_matches_plain(cuda, d, w, q):
+    rng = np.random.default_rng(d * 100 + w + q)
+    vals = rng.random((d, w)) * 1e6
+    vals[rng.random((d, w)) < 0.2] = 0.0
+    vals[0, 0] = -0.0                     # sign bit set: above every value
+    bits = torch.from_numpy(vals.view(np.int64).copy()).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, w, (q, d))).to(cuda)
+    got = K.gather_min64(bits, idx)
+    _equal((got,), (K.gather_min64_ref(bits, idx),))
+
+
+def test_durable_adaptive_store_opens_on_card(cuda, tmp_path):
+    """A durable scavenger_adaptive store on the card recovers on the card
+    (``Store.open(..., device="cuda")``) to the CPU store's state."""
+    def run(device, path):
+        cfg = EngineConfig.scaled("scavenger_adaptive", 8 << 20,
+                                  est_keys=4096, kernel_min_batch=1)
+        store = Store(cfg, durability_dir=path, device=device)
+        rng = np.random.default_rng(2)
+        for i in range(6):
+            if i == 3:
+                store.checkpoint()
+            keys = rng.integers(0, 4096, 512).astype(np.uint64)
+            store.write(WriteBatch().puts(keys, np.full(512, 1024)))
+            store.multi_get(keys[::3])
+        store.close()
+        rec = Store.open(path, device=device)
+        assert rec.device.type == torch.device(device).type
+        return rec.stats(), rec.multi_get(
+            np.arange(4096, dtype=np.uint64))["vid"].tolist()
+    assert run(cuda, tmp_path / "card") == run("cpu", tmp_path / "cpu")
+
+
+@pytest.mark.parametrize("engine", ["titan", "scavenger",
+                                    "scavenger_adaptive"])
 def test_store_on_card_matches_cpu(cuda, engine):
     def run(device, **kw):
         cfg = EngineConfig.scaled(engine, 8 << 20, est_keys=4096, **kw)
