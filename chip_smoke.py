@@ -7,8 +7,8 @@ Run from the repository root on a machine with one CUDA card::
 
 Phases, each of which raises on failure (exit code != 0):
 
-1. build   — compile ``src/repro_torch/kernels/csrc/kernels.cu`` for sm_90a
-             and load it;
+1. build   — compile ``src/repro_torch/kernels/csrc/kernels.cu`` for
+             sm_90a and load it;
 2. kernels — each of the six CUDA kernels against its plain torch version
              on the card, at adversarial shapes (Q=1, N=0, N=1, duplicate
              keys, queries at the run's min and max, keys >= 2^32 and
@@ -17,6 +17,19 @@ Phases, each of which raises on failure (exit code != 0):
              4, W not a power of two, counters of 0.0 and -0.0 and patterns
              that differ only in the low 32 bits); outputs must be equal
              exactly;
+2b. bench  — the five kernels the store never routes to (``gc_lookup``,
+             ``bloom_probe``, ``merge_dedup``, ``hot_cold_partition``,
+             ``page_gather``) against their plain versions at the reference
+             tests' shapes, the edges (empty, one, ragged tiles, all and no
+             hot records, runs sharing every key, keys at 0xFFFFFFFD and the
+             reference's pad values) and the ``deploy`` shapes of
+             ``repro_torch.bench.kernels`` (the 1 GiB store's state): integer
+             outputs equal exactly, pages bit for bit.  Then the kernel
+             benchmark itself, ``repro_torch.bench.kernels.run("cuda",
+             "all")``, with the five launch counts zeroed just before and
+             read just after (each must be > 0), its rows on one line; and
+             each kernel timed at its largest ``deploy`` shape beside its
+             plain version, a PyTorch library call and its bound;
 3. main    — one ``scavenger`` Store on the card at a 1 GiB dataset
              (2^20 keys x 1 KiB values, keys drawn from [0, 2^40)): load,
              one uniform update pass, 262,144 multi_get keys and 1,024 scans
@@ -55,10 +68,19 @@ Phases, each of which raises on failure (exit code != 0):
 
 ``python3 chip_smoke.py --crossover [--src DIR]`` runs phase 4 alone on a
 smaller store (2^18 keys), against the port under ``DIR/repro_torch``
-(default ``src``): run it on two trees in one call to compare them.
+(default ``src``); ``python3 chip_smoke.py --kernel-times [--src DIR]``
+only builds that port's library and times ``segment_sum`` and
+``gather_min64`` at the adaptive run's shapes.  Run either on two trees in
+one call to compare them.
+
+Device times come from the profiler, each kernel's mean over the launches
+that three sessions recorded (late in a long process a session loses
+some); one that no session recorded is taken by CUDA events, the calls
+queued behind a spin kernel, and its record names it under
+``events_timed``.
 
 The second-to-last line of output is the card's name and power limit, the
-one before it the per-kernel JSON record; the last line is
+one before it the per-kernel JSON record (eleven kernels); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -89,10 +111,18 @@ REPLACES = {
     "run_coalesce": "src/repro/kernels/run_coalesce/kernel.py:47",
     "segment_sum": "src/repro/kernels/segment_reduce/kernel.py:47",
     "gather_min64": "src/repro/kernels/segment_reduce/kernel.py:93",
+    "gc_lookup": "src/repro/kernels/gc_lookup/kernel.py:53",
+    "bloom_probe": "src/repro/kernels/bloom/kernel.py:49",
+    "merge_dedup": "src/repro/kernels/merge/kernel.py:49",
+    "hot_cold_partition": "src/repro/kernels/partition/kernel.py:37",
+    "page_gather": "src/repro/kernels/paged_gather/kernel.py:30",
 }
 # the kernels each run of the store must launch
 MAIN_KERNELS = ("lookup_probe", "rank_probe", "count_le", "run_coalesce")
 ADAPTIVE_KERNELS = MAIN_KERNELS + ("segment_sum", "gather_min64")
+# the kernels the kernel benchmark must launch (no store path reaches them)
+BENCH_KERNELS = ("gc_lookup", "bloom_probe", "merge_dedup",
+                 "hot_cold_partition", "page_gather")
 SOURCE = "src/repro_torch/kernels/csrc/kernels.cu"
 
 
@@ -132,43 +162,104 @@ CUDA_KERNELS = ("rank_probe_kernel", "lookup_probe_kernel", "count_le_kernel",
                 "coalesce_smem_kernel", "pack_kernel", "bitonic_stage_kernel",
                 "mark_kernel", "segment_sum_kernel", "gather_min64_kernel",
                 # segment_sum zeroes its counts with a memset on the stream
-                "Memset")
+                "Memset",
+                "gc_lookup_kernel", "bloom_probe_kernel",
+                "merge_scatter_kernel", "merge_keep_kernel",
+                "partition_count_kernel", "partition_scan_kernel",
+                "partition_scatter_kernel", "page_gather_kernel")
 
 
-def device_busy_us(fn, only=None) -> float:
-    """Device time (us) of the kernels, copies and fills ``fn`` issues
-    (those whose name contains one of ``only``, if given), from the
-    profiler's CUDA activity records."""
+SPIN_TAIL_CYCLES = 2_000_000    # ~1 ms at the H100's 1.98 GHz boost clock
+SPIN_CYCLES = 100_000_000       # ~50 ms
+
+
+def kernel_records(fn, only=None) -> dict:
+    """{name: (launches, device us)} of the kernels, copies and fills
+    ``fn`` issues (those whose name contains one of ``only``, if given),
+    from one profiling session.
+
+    The session ends with a spin kernel of torch's own, which is not
+    counted: late in a long process a session often loses its last
+    records without it (PERF.md §7)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
+        torch.cuda._sleep(SPIN_TAIL_CYCLES)
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and (only is None or any(k in e.key for k in only)))
+    return {e.key: (e.count, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spin_kernel" not in e.key
+            and (only is None or any(k in e.key for k in only))}
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3, only=None) -> float:
+def device_busy_us(fn, only=None) -> float:
+    """Device time (us) of what ``fn`` issues, from the profiler."""
+    return sum(us for _, us in kernel_records(fn, only).values())
+
+
+# labels of the device times that no profiling session recorded, so that
+# CUDA events took them (queued_ms); each record lists its own
+EVENTS_TIMED: list = []
+PROFILE_SESSIONS = 3
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Mean device time (ms) per call of ``fn`` by CUDA events, the calls
+    queued behind a spin kernel so that the host's issue time does not
+    show (a call that waits for the card still shows its wait; the gaps
+    between back-to-back kernels count)."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3, only=None,
+              label: str = "") -> float:
     """Mean device time (ms) per call of ``fn`` (warm L2: the main path
-    reprobes the same columns); raises if no device work was recorded.
+    reprobes the same columns), from the profiler's records.
 
-    A profiling session sometimes returns none of its kernel records
-    (seen once on the H100 machine, after the main run's long sessions),
-    so an empty session is repeated, up to three sessions."""
+    Late in a long process a profiling session loses some of its records,
+    whole launches and not parts of them (on the H100 machine, more the
+    longer the process has run).  So each kernel's time per launch is the
+    mean over every launch that ``PROFILE_SESSIONS`` sessions recorded, and
+    its launches per call the most one session recorded over ``iters``,
+    rounded (at least one).  If no session records anything,
+    ``queued_ms`` takes the time and ``label`` goes into
+    ``EVENTS_TIMED``."""
     for _ in range(warmup):
         fn()
 
     def loop():
         for _ in range(iters):
             fn()
-    for attempt in (1, 2, 3):
-        us = device_busy_us(loop, only)
-        if us > 0:
-            return us / iters / 1e3
-        log(f"[profile] session {attempt} recorded no device time")
-    raise SmokeFailure("the profiler recorded no device time")
+    most, total = {}, {}
+    for _ in range(PROFILE_SESSIONS):
+        for key, (n, us) in kernel_records(loop, only).items():
+            most[key] = max(most.get(key, 0), n)
+            tn, tus = total.get(key, (0, 0.0))
+            total[key] = (tn + n, tus + us)
+    if not most:
+        log(f"[profile] {label}: no session recorded device time; timed "
+            f"by CUDA events instead")
+        EVENTS_TIMED.append(label)
+        return queued_ms(fn, iters)
+    lost = {k: n for k, n in most.items() if n % iters}
+    if lost:
+        log(f"[profile] {label}: most launches a session recorded, of "
+            f"{iters} calls: {json.dumps(lost)}")
+    return sum(total[k][1] / total[k][0] * max(1, round(most[k] / iters))
+               for k in most) / 1e3
 
 
 def max_abs_err(got, want) -> int:
@@ -327,7 +418,7 @@ def kernel_phase(device) -> dict:
     import numpy as np
     from repro_torch.kernels.common import smem_sort_cap
     rng = np.random.default_rng(7)
-    errs = {k: 0 for k in REPLACES}
+    errs = {k: 0 for k in ADAPTIVE_KERNELS}
     cap = smem_sort_cap()
     for n, q, hi, kw in (
             (0, 1, 2**20, {}), (1, 1, 2**20, {"edge": True}),
@@ -348,6 +439,218 @@ def kernel_phase(device) -> dict:
     for k, e in errs.items():
         require(e == 0, f"kernel {k} disagrees with its plain version")
     return errs
+
+
+# ----------------------------------------------------------- 2b. bench
+def _bits(t):
+    """A float tensor's bit pattern as an integer tensor (bit-for-bit
+    comparison); integer and bool tensors as they are."""
+    import torch
+    if t.dtype in (torch.bfloat16, torch.float16):
+        return t.view(torch.int16)
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t
+
+
+def _as_tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _hold(name, args, errs) -> tuple:
+    """One kernel call against its plain version on the same operands.
+    -> the kernel's outputs."""
+    from repro_torch import kernels
+    got = _as_tuple(getattr(kernels, name)(*args))
+    want = _as_tuple(getattr(kernels, name + "_ref")(*args))
+    errs[name] = max(errs[name], max_abs_err([_bits(g) for g in got],
+                                             [_bits(w) for w in want]))
+    return got
+
+
+def _bench_kernel_checks(rng, device, errs) -> None:
+    """The reference tests' parametrizations (tests/test_kernels.py) and the
+    edges, each kernel against its plain version, with independent NumPy
+    checks where they are cheap."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.common import u32_tensor
+
+    def u32(*cols):
+        return tuple(u32_tensor(np.asarray(c), device) for c in cols)
+
+    top = 0xFFFFFFFD                   # largest key the reference accepts
+    # gc_lookup: the reference's (q, n) cases, then the edges
+    for q, n, kind in ((1, 10, ""), (17, 100, ""), (300, 1000, ""),
+                       (256, 512, ""), (5, 2000, ""), (5, 0, ""),
+                       (0, 50, ""), (1, 1, ""), (700, 3000, "dup"),
+                       (600, 3000, "top"), (4097, 70000, "")):
+        keys = np.sort(rng.choice(np.arange(1, 10 * max(n, 1) + 2,
+                                            dtype=np.uint32), n,
+                                  replace=False))
+        if kind == "dup":
+            keys = np.sort(np.concatenate([keys, keys[::5]]))
+        if kind == "top":
+            keys[-3:] = [top - 2, top - 1, top]
+        qs = np.concatenate([rng.choice(keys, q // 2) if n else keys[:0],
+                             rng.integers(0, 1 << 32, q, dtype=np.uint64)
+                             .astype(np.uint32)])[:q]
+        if kind == "top" and q > 4:
+            qs[:4] = [top, top - 1, 0xFFFFFFFE, 0xFFFFFFFF]
+        vids = (keys * 3 + 1).astype(np.uint32)
+        found, vid, _ = _hold("gc_lookup", u32(qs, keys, vids, keys), errs)
+        pos = np.searchsorted(keys, qs)
+        hit = np.zeros(len(qs), bool) if not n else \
+            keys[np.minimum(pos, len(keys) - 1)] == qs
+        require((found.cpu().numpy() == hit).all()
+                and (vid.cpu().numpy().view(np.uint32)[hit]
+                     == vids[pos[hit]]).all(),
+                f"gc_lookup disagrees with numpy at q={q} n={n} {kind}")
+    # bloom: the reference's (n, q) cases, no probes, one probe, top keys
+    for n, q, kind in ((10, 5, ""), (1000, 300, ""), (5000, 1000, ""),
+                       (100, 0, ""), (100, 1, ""), (64, 40, "top")):
+        keys = rng.choice(np.arange(1, 1 << 24, dtype=np.uint32), n,
+                          replace=False)
+        if kind == "top":
+            keys[:4] = [0xFFFFFFFF, 0xFFFFFFFE, 0x80000000, 0x7FFFFFFF]
+        words, k, nbits = kernels.bloom_build(*u32(keys))
+        probes = np.concatenate([keys[:q // 2], rng.integers(
+            1 << 24, 1 << 25, q - q // 2).astype(np.uint32)])
+        (may,) = _hold("bloom_probe", (*u32(probes), words, k, nbits), errs)
+        require(bool(may[:q // 2].all()), f"bloom false negative at n={n}")
+    # merge: the reference's (na, nb) cases, then empty runs, runs sharing
+    # every key, rows equal in key and seq, key 0xFFFFFFFF
+    for na, nb, kind in ((1, 1, ""), (10, 3, ""), (100, 100, ""),
+                         (64, 257, ""), (0, 0, ""), (0, 5, ""), (5, 0, ""),
+                         (300, 300, "shared"), (300, 300, "equal"),
+                         (40, 30, "top"), (5000, 7000, "")):
+        ak = np.sort(rng.choice(np.arange(4 * (na + nb) + 4,
+                                          dtype=np.uint32), na, replace=False))
+        bk = np.sort(rng.choice(np.arange(4 * (na + nb) + 4,
+                                          dtype=np.uint32), nb, replace=False))
+        aseq = rng.integers(0, 1000, na).astype(np.uint32) * 2
+        bseq = rng.integers(0, 1000, nb).astype(np.uint32) * 2 + 1
+        if kind in ("shared", "equal"):
+            bk = ak.copy()
+            bseq = aseq.copy() if kind == "equal" else aseq + 1
+        if kind == "top":
+            ak[-1] = bk[-1] = 0xFFFFFFFF
+        keys, _, _, keep = _hold("merge_dedup", u32(
+            ak, aseq, ak + 1, bk, bseq, bk + 2), errs)
+        kk = keys.cpu().numpy().view(np.uint32)
+        require(bool((np.diff(kk.astype(np.int64)) >= 0).all())
+                and int(keep.sum()) == len(np.union1d(ak, bk)),
+                f"merge_dedup disagrees with numpy at {na}+{nb} {kind}")
+    # partition: the reference's sizes, then empty, all hot, none hot and
+    # a ragged last tile
+    for n, share in ((1, .3), (7, .3), (64, .3), (500, .3), (0, .3),
+                     (5000, 1.), (5000, 0.), (1025, .3), (70001, .3)):
+        hot = rng.random(n) < share
+        keys = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+        out = _hold("hot_cold_partition",
+                    (*u32(keys), torch.from_numpy(hot).to(device),
+                     *u32(np.arange(n), np.full(n, 100))), errs)
+        order = np.argsort(~hot, kind="stable")
+        require(int(out[3][0]) == int(hot.sum())
+                and (out[0].cpu().numpy().view(np.uint32)
+                     == keys[order]).all(),
+                f"hot_cold_partition disagrees with numpy at n={n}")
+    # page_gather: the reference's cases, then a page of 30 bytes
+    for b, p, npages, psize, d, dtype in (
+            (1, 1, 4, 8, 128, torch.float32), (4, 8, 64, 16, 128,
+                                                torch.float32),
+            (2, 4, 16, 8, 64, torch.bfloat16), (3, 5, 32, 4, 256,
+                                                 torch.int32),
+            (2, 3, 5, 3, 5, torch.bfloat16)):
+        pages = (torch.from_numpy(rng.standard_normal((npages, psize, d)))
+                 * 10).to(dtype).to(device)
+        table = torch.from_numpy(rng.integers(0, npages, (b, p)).astype(
+            np.int32))
+        (out,) = _hold("page_gather", (table, pages), errs)
+        want = pages.cpu()[table.long()].reshape(b, p * psize, d)
+        require(torch.equal(_bits(out.cpu()), _bits(want)),
+                f"page_gather disagrees with torch indexing at {b}x{p}")
+
+
+def bench_phase(device) -> list:
+    """The five benchmark kernels: checks, the benchmark run with their
+    launch counts, and their records at the deploy shapes."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.bench import kernels as bench
+    rng = np.random.default_rng(15)
+    errs = {k: 0 for k in BENCH_KERNELS}
+    t0 = time.perf_counter()
+    _bench_kernel_checks(rng, device, errs)
+    deploy = bench.deploy_cases()
+    for case in bench.bench_cases() + deploy:
+        _hold(case.kernel, bench.operands(case, device), errs)
+    log("[bench] max abs err at the reference's, edge and deploy shapes: "
+        + json.dumps(errs) + f" ({time.perf_counter() - t0:.1f}s)")
+    for k, e in errs.items():
+        require(e == 0, f"kernel {k} disagrees with its plain version")
+
+    # the path: the kernel benchmark, counts zeroed just before
+    for fn in kernels.KERNELS:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rows = bench.run(device, "all")
+    launches = {k: getattr(kernels, k).launches for k in BENCH_KERNELS}
+    print(json.dumps({"bench_rows": rows}), flush=True)
+    log(f"[bench] launches: {json.dumps(launches)} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    for k, n in launches.items():
+        require(n > 0, f"kernel {k} was not launched by the kernel benchmark")
+
+    # records at each kernel's largest deploy shape (page_gather: the f32
+    # pool, whose 60 MB of traffic exceeds the 50 MB L2; the bf16 pool's
+    # fits, so its warm-L2 time can beat the bytes bound)
+    largest = {}
+    for case in deploy:
+        if case.nbytes > getattr(largest.get(case.kernel), "nbytes", -1):
+            largest[case.kernel] = case
+    recs = []
+    m32 = -(1 << 31)                   # int32 XOR: u32 order as signed order
+    for case in largest.values():
+        args = bench.operands(case, device)
+        kern = (lambda f, a: lambda: f(*a))(bench.wrapper(case), args)
+        plain = (lambda f, a: lambda: f(*a))(bench.plain(case), args)
+        if case.kernel == "gc_lookup":
+            qo, ko = args[0] ^ m32, args[1] ^ m32
+            lib = (lambda: torch.searchsorted(ko, qo))
+        elif case.kernel == "merge_dedup":
+            cat = torch.cat([args[0], args[3]]) ^ m32
+            lib = (lambda: torch.sort(cat))
+        elif case.kernel == "hot_cold_partition":
+            cold = (~args[1]).to(torch.uint8)
+            lib = (lambda: torch.argsort(cold, stable=True))
+        elif case.kernel == "page_gather":
+            tab, pages = args[0].reshape(-1).to(device), args[1]
+            lib = (lambda: pages.index_select(0, tab))
+        else:
+            lib = None
+        err = max_abs_err([_bits(g) for g in _as_tuple(kern())],
+                          [_bits(w) for w in _as_tuple(plain())])
+        require(err == 0, f"{case.kernel} disagrees with its plain version "
+                          f"at the deploy shape")
+        bound_ms, bound_by = _bound(case.nbytes, case.nops)
+        n0, name = len(EVENTS_TIMED), case.kernel
+        rec = {"name": name, "route": "cuda", "source": SOURCE,
+               "replaces": REPLACES[name],
+               "launches": launches[name], "max_abs_err": err,
+               "ms": device_ms(kern, only=CUDA_KERNELS, label=f"{name} ms"),
+               "plain_ms": device_ms(plain, iters=5,
+                                     label=f"{name} plain_ms"),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": device_ms(lib, label=f"{name} library_ms")
+               if lib is not None else None,
+               "call_ms": call_ms(kern), "shape": case.shape}
+        rec["events_timed"] = EVENTS_TIMED[n0:]
+        log(f"[bench] {json.dumps(rec)}")
+        recs.append(rec)
+    return recs
 
 
 # ------------------------------------------------------------ 3. main
@@ -707,9 +1010,11 @@ def shapes_phase(capture: Capture, launches: dict) -> list:
                           f"main-path shapes")
         # ms: the CUDA kernels alone (a wrapper's operand checks are not
         # the kernel); call_ms: the whole wrapper call as the store makes it
-        ms = device_ms(kern, only=CUDA_KERNELS)
-        plain_ms = device_ms(plain, iters=5)
-        lib_ms = device_ms(lib) if lib is not None else None
+        n0 = len(EVENTS_TIMED)
+        ms = device_ms(kern, only=CUDA_KERNELS, label=f"{name} ms")
+        plain_ms = device_ms(plain, iters=5, label=f"{name} plain_ms")
+        lib_ms = device_ms(lib, label=f"{name} library_ms") \
+            if lib is not None else None
         bound_ms, bound_by = _bound(nbytes, nops)
         rec = {"name": name, "route": "cuda", "source": SOURCE,
                "replaces": REPLACES[name], "launches": launches[name],
@@ -717,7 +1022,7 @@ def shapes_phase(capture: Capture, launches: dict) -> list:
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": lib_ms, "call_ms": call_ms(kern),
                "shape": [list(a.shape) if hasattr(a, "shape") else a
-                         for a in args]}
+                         for a in args], "events_timed": EVENTS_TIMED[n0:]}
         log(f"[shapes] {json.dumps(rec)}")
         recs.append(rec)
 
@@ -1064,6 +1369,41 @@ def crossover_only(src: Path) -> None:
 
 
 # ------------------------------------------------------------- main
+def kernel_times_only(src: Path) -> None:
+    """Build the port under ``src`` and time ``segment_sum`` and
+    ``gather_min64`` at the adaptive run's largest inputs (1,018 ids into
+    32,576 slots; a 2 x 4,096 sketch and 5,433 queries) on seeded data:
+    the build's wall time, and each kernel's device time per launch in
+    three profiler sessions of 200 launches each and by ``queued_ms``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(src.resolve()))
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.kernels import common
+    log(f"[kernel-times] port at {Path(repro_torch.__file__).parent}")
+    t0 = time.perf_counter()
+    common.library()
+    out = {"build_s": time.perf_counter() - t0}
+    rng = np.random.default_rng(14)
+    slots = 32576
+    ids = torch.from_numpy(rng.integers(0, slots, 1018)).to("cuda")
+    vals = rng.random((2, 4096)) * 1e6
+    bits = torch.from_numpy(vals.view(np.int64).copy()).to("cuda")
+    idx = torch.from_numpy(rng.integers(0, 4096, (5433, 2))).to("cuda")
+    for name, fn in (("segment_sum", lambda: kernels.segment_sum(ids, slots)),
+                     ("gather_min64",
+                      lambda: kernels.gather_min64(bits, idx))):
+        out[name] = [device_ms(fn, iters=200, only=CUDA_KERNELS, label=name)
+                     for _ in range(3)]
+        out[name + "_queued"] = queued_ms(fn, 200)
+    print(json.dumps({"kernel_times": out}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1076,6 +1416,9 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--crossover", action="store_true",
                     help="run only phase 4, on a 2^18-key store")
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="only build the library and time segment_sum and "
+                         "gather_min64 at the adaptive run's shapes")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="directory holding the repro_torch package")
     args = ap.parse_args(argv)
@@ -1090,12 +1433,16 @@ def main(argv) -> int:
     if args.crossover:
         crossover_only(args.src)
         return 0
+    if args.kernel_times:
+        kernel_times_only(args.src)
+        return 0
     sys.path.insert(0, str(args.src.resolve()))
     t_start = time.perf_counter()
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     build_phase()
     kernel_phase("cuda")
+    bench_recs = bench_phase("cuda")
     cap = Capture()
     main, store = main_run("cuda", capture=cap)
     for name in MAIN_KERNELS:
@@ -1109,8 +1456,8 @@ def main(argv) -> int:
                 f"kernel {name} was not launched in the adaptive run")
     # each kernel's count from the run that carries it
     launches = {name: (main if name in MAIN_KERNELS else adaptive)
-                ["launches"][name] for name in REPLACES}
-    recs = shapes_phase(cap, launches)
+                ["launches"][name] for name in ADAPTIVE_KERNELS}
+    recs = shapes_phase(cap, launches) + bench_recs
     parity_phase()
     crash_phase()
     log(f"[done] {time.perf_counter() - t_start:.1f}s")

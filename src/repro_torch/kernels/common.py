@@ -1,6 +1,6 @@
 """Shared pieces of the CUDA kernels: the library build, the u64 order
-helper, host<->device column copies and the device cache of immutable
-host columns.
+helper, the u32 column helpers, host<->device column copies and the device
+cache of immutable host columns.
 
 Build: ``csrc/kernels.cu`` holds every kernel behind a plain C interface.
 ``library()`` compiles it with ``nvcc`` for ``sm_90a`` into ``_build/``
@@ -14,6 +14,13 @@ travel as int64 tensors holding the u64 bit patterns
 (``ndarray.view(np.int64)``).  The CUDA code compares them as
 ``uint64_t``; the plain torch versions compare ``u64_order(x)``, which
 flips the sign bit so that signed order equals unsigned order.
+
+u32 columns (the five benchmark kernels' keys, seqs, vids and filter
+words, u32 as in the reference) travel as int32 tensors holding the u32
+bit patterns (``ndarray.view(np.int32)``): every int32 tensor is a valid
+u32 column, so no range check is needed, and the card moves 4 bytes per
+value.  The CUDA code reads them as ``uint32_t``; the plain versions widen
+them with ``u32_values`` and narrow results back with ``u32_bits``.
 """
 
 from __future__ import annotations
@@ -43,6 +50,23 @@ def u64_order(t: torch.Tensor) -> torch.Tensor:
     """int64 tensor of u64 bit patterns -> int64 values whose signed order
     is the unsigned order of the patterns (sign-bias XOR)."""
     return t ^ SIGN_BIT
+
+
+def u32_values(t: torch.Tensor) -> torch.Tensor:
+    """int32 tensor of u32 bit patterns -> int64 tensor of the u32 values."""
+    return t.to(torch.int64) & U32_MAX
+
+
+def u32_bits(v: torch.Tensor) -> torch.Tensor:
+    """int64 tensor of values in [0, 2^32) -> int32 tensor of their bits."""
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def u32_tensor(a, device=None) -> torch.Tensor:
+    """A host column of values in [0, 2^32) as an int32 bit-view tensor."""
+    a = np.ascontiguousarray(np.asarray(a).astype(np.uint32, copy=False))
+    t = torch.from_numpy(a.view(np.int32).copy())
+    return t if device is None else t.to(device)
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -96,6 +120,11 @@ _SIGNATURES = {
     "run_coalesce": (_P, _P, _I64, _I64, _P, _I64, _P, _P, _P, _P, _P),
     "segment_sum": (_P, _I64, _I64, _P, _P),
     "gather_min64": (_P, _I64, _I64, _P, _I64, _P, _P),
+    "gc_lookup": (_P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P),
+    "bloom_probe": (_P, _I64, _P, _I64, _I64, _P, _P),
+    "merge_dedup": (_P, _P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P),
+    "hot_cold_partition": (_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P),
+    "page_gather": (_P, _I64, _P, _I64, _I64, _P, _P),
 }
 
 
@@ -109,8 +138,9 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.scav_error_string.argtypes = [ctypes.c_int]
     lib.scav_error_string.restype = ctypes.c_char_p
-    lib.scav_smem_sort_cap.argtypes = []
-    lib.scav_smem_sort_cap.restype = ctypes.c_int64
+    for name in ("scav_smem_sort_cap", "scav_partition_tile"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int64
     lib.scav_stream_sync.argtypes = [_P]
     lib.scav_stream_sync.restype = ctypes.c_int
     return lib
@@ -121,6 +151,13 @@ def smem_sort_cap() -> int:
     """Pairs ``run_coalesce`` sorts in one CTA's shared memory (the
     library's own constant); a longer column needs a scratch buffer."""
     return int(library().scav_smem_sort_cap())
+
+
+@functools.lru_cache(maxsize=None)
+def partition_tile() -> int:
+    """Records per tile of the partition passes (the library's constant);
+    ``hot_cold_partition`` needs one int64 of scratch per tile."""
+    return int(library().scav_partition_tile())
 
 
 def launch(name: str, device: torch.device, *args) -> None:
@@ -169,6 +206,21 @@ def check_columns(name: str, *cols: torch.Tensor) -> torch.device:
             raise ValueError(f"{name}: operands must be contiguous int64 "
                              f"tensors on one device, got {c.dtype} "
                              f"on {c.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+def check_u32_columns(name: str, *cols: torch.Tensor) -> torch.device:
+    """All operands 1-d contiguous int32 (u32 bit views) on one device.
+    -> that device."""
+    dev = cols[0].device
+    for c in cols:
+        if c.dtype != torch.int32 or c.dim() != 1 or not c.is_contiguous() \
+                or c.device != dev:
+            raise ValueError(f"{name}: operands must be 1-d contiguous int32 "
+                             f"(u32 bit view) tensors on one device, got "
+                             f"{c.dtype} {tuple(c.shape)} on {c.device}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
     return dev

@@ -21,6 +21,7 @@
 
 typedef unsigned long long u64;
 typedef long long i64;
+typedef uint32_t u32;
 
 namespace {
 
@@ -31,8 +32,11 @@ constexpr int kCoalesceThreads = 1024;
 // the wrapper reads it through scav_smem_sort_cap()
 constexpr i64 kSmemSortCap = 8192;
 
-__device__ __forceinline__ i64 lower_bound(const u64* __restrict__ run,
-                                           i64 n, u64 q) {
+// #{run < q} over an ascending run (searchsorted side='left'); T is u64
+// for the store's keys, u32 for the benchmark kernels' keys.
+template <typename T>
+__device__ __forceinline__ i64 lower_bound(const T* __restrict__ run, i64 n,
+                                           T q) {
   i64 lo = 0, hi = n;
   while (lo < hi) {
     i64 mid = (lo + hi) >> 1;
@@ -325,6 +329,223 @@ inline unsigned blocks_for(i64 n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
+// ===========================================================================
+// The five kernels no store path routes to, reached through the kernel
+// benchmark (repro_torch/bench/).  Keys, sequence numbers, vids, vfiles,
+// sizes and filter words are u32, as in the reference (src/repro/kernels/),
+// and arrive as the int32 bit view of those values.  No kernel pads:
+// ragged edges are masked, so no sentinel value is reserved.
+
+constexpr int kPartTile = 1024;   // records per CTA of the partition passes
+constexpr int kCopyThreads = 256;
+
+// ---------------------------------------------------------------------------
+// gc_lookup: replaces gc_lookup_pallas (src/repro/kernels/gc_lookup/
+// kernel.py:53), with the contract of gc_lookup/ref.py: the first entry of
+// the run equal to the query (searchsorted side='left') gives vid and
+// vfile; a miss gives found false and zeros.
+//
+// Bound: latency.  Each query is ~log2(N) dependent loads into the sorted
+// run, and only a hit reads its vid and vfile.  The TPU kernel compared every query with every key (no
+// per-lane gather there); here one thread per query runs a binary search,
+// so all queries' load chains overlap and the run's top levels stay in L2.
+__global__ void gc_lookup_kernel(const u32* __restrict__ q, i64 nq,
+                                 const u32* __restrict__ keys,
+                                 const u32* __restrict__ vids,
+                                 const u32* __restrict__ vfiles, i64 n,
+                                 bool* __restrict__ found,
+                                 u32* __restrict__ vid,
+                                 u32* __restrict__ vfile) {
+  i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nq) return;
+  u32 key = q[i];
+  i64 r = lower_bound(keys, n, key);
+  bool hit = r < n && keys[r] == key;
+  found[i] = hit;
+  vid[i] = hit ? vids[r] : 0u;
+  vfile[i] = hit ? vfiles[r] : 0u;
+}
+
+// ---------------------------------------------------------------------------
+// bloom_probe: replaces bloom_probe_pallas (src/repro/kernels/bloom/
+// kernel.py:49).  h1 = mix32(q), h2 = mix32(q ^ MIX1) | 1; the query may
+// be in the set when bit (h1 + j*h2) mod nbits is set for every j < k,
+// in wrapping u32 arithmetic, which u32 here gives for free.
+//
+// Bound: latency.  k independent word gathers per query from a filter of
+// a few MB (L2-resident).  The TPU kernel fetched each word by a one-hot
+// multiply-reduce over the whole filter; here one thread per query hashes
+// in registers and gathers its k words directly.
+__device__ __forceinline__ u32 mix32(u32 x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  return x ^ (x >> 16);
+}
+
+__global__ void bloom_probe_kernel(const u32* __restrict__ q, i64 nq,
+                                   const u32* __restrict__ words, u32 nbits,
+                                   i64 k, bool* __restrict__ out) {
+  i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nq) return;
+  u32 key = q[i];
+  u32 h1 = mix32(key), h2 = mix32(key ^ 0x85EBCA6Bu) | 1u;
+  bool all = true;
+  for (i64 j = 0; j < k; ++j) {
+    u32 b = (h1 + (u32)j * h2) % nbits;
+    all &= ((words[b >> 5] >> (b & 31u)) & 1u) != 0;
+  }
+  out[i] = all;
+}
+
+// ---------------------------------------------------------------------------
+// merge_dedup: replaces merge_dedup_pallas (src/repro/kernels/merge/
+// kernel.py:49), with the contract of merge/ref.py: the rows of A then B
+// in (key asc, seq desc) order, ties kept in input order (A first), and
+// keep true where a row's key differs from the previous row's.
+//
+// Bound: latency.  One binary search of ~log2(N) dependent loads per row.
+// The TPU kernel ran a bitonic merge network over power-of-two halves
+// padded with key 0xFFFFFFFF; here each row finds its output position by
+// its co-rank in the other run (merge path), so there is no padding and
+// no key is reserved: an A row lands at i + #{B < a}, a B row at
+// j + #{A <= b}, in the order of the packed u64 (key << 32 | ~seq).  A
+// second pass marks keep from the merged keys.  Each run must already be
+// in that order (the wrapper's precondition).
+__device__ __forceinline__ u64 merge_key(const u32* __restrict__ keys,
+                                         const u32* __restrict__ seqs,
+                                         i64 i) {
+  return ((u64)keys[i] << 32) | (u64)(~seqs[i]);
+}
+
+template <bool kInclusive>
+__device__ __forceinline__ i64 co_rank(const u32* __restrict__ keys,
+                                       const u32* __restrict__ seqs, i64 n,
+                                       u64 v) {
+  i64 lo = 0, hi = n;
+  while (lo < hi) {
+    i64 mid = (lo + hi) >> 1;
+    u64 m = merge_key(keys, seqs, mid);
+    if (kInclusive ? m <= v : m < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__global__ void merge_scatter_kernel(
+    const u32* __restrict__ ak, const u32* __restrict__ as,
+    const u32* __restrict__ av, i64 na, const u32* __restrict__ bk,
+    const u32* __restrict__ bs, const u32* __restrict__ bv, i64 nb,
+    u32* __restrict__ ok, u32* __restrict__ os, u32* __restrict__ ov) {
+  i64 t = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= na + nb) return;
+  i64 p;
+  u32 key, seq, vid;
+  if (t < na) {
+    key = ak[t]; seq = as[t]; vid = av[t];
+    p = t + co_rank<false>(bk, bs, nb, merge_key(ak, as, t));
+  } else {
+    i64 j = t - na;
+    key = bk[j]; seq = bs[j]; vid = bv[j];
+    p = j + co_rank<true>(ak, as, na, merge_key(bk, bs, j));
+  }
+  ok[p] = key;
+  os[p] = seq;
+  ov[p] = vid;
+}
+
+__global__ void merge_keep_kernel(const u32* __restrict__ keys, i64 n,
+                                  bool* __restrict__ keep) {
+  i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) keep[i] = i == 0 || keys[i] != keys[i - 1];
+}
+
+// ---------------------------------------------------------------------------
+// hot_cold_partition: replaces hot_cold_partition_pallas (src/repro/
+// kernels/partition/kernel.py:37), with the contract of partition/ref.py:
+// a stable partition, hot records first, plus the hot count.
+//
+// Bound: bytes (13 B read and 12 B written per record).  The TPU kernel
+// bitonic-sorted (cold << log2 n | position) over a power-of-two padding;
+// here a hot record goes to its exclusive hot prefix h(i) and a cold one to
+// n_hot + i - h(i), in three passes: per-tile hot counts, one CTA scanning
+// them into tile offsets and the total, and a scatter that rebuilds h(i)
+// inside its tile from warp ballots.
+__global__ void __launch_bounds__(kPartTile)
+partition_count_kernel(const bool* __restrict__ hot, i64 n,
+                       i64* __restrict__ tile_hot) {
+  i64 i = (i64)blockIdx.x * kPartTile + threadIdx.x;
+  int c = __syncthreads_count(i < n && hot[i]);
+  if (threadIdx.x == 0) tile_hot[blockIdx.x] = c;
+}
+
+// tile_hot: counts in, exclusive offsets out; n_hot: the total.
+__global__ void __launch_bounds__(1024)
+partition_scan_kernel(i64* __restrict__ tile_hot, i64 ntiles,
+                      i64* __restrict__ n_hot) {
+  __shared__ i64 warp_tot[32];
+  __shared__ i64 chunk_tot;
+  i64 carry = 0;
+  for (i64 c = 0; c < ntiles; c += blockDim.x) {
+    const i64 i = c + threadIdx.x;
+    const i64 v = i < ntiles ? tile_hot[i] : 0;
+    const i64 inc = block_scan<false>(v, warp_tot);
+    if (i < ntiles) tile_hot[i] = carry + inc - v;
+    if (threadIdx.x == blockDim.x - 1) chunk_tot = inc;
+    __syncthreads();
+    carry += chunk_tot;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *n_hot = carry;
+}
+
+__global__ void __launch_bounds__(kPartTile)
+partition_scatter_kernel(const u32* __restrict__ keys,
+                         const bool* __restrict__ hot,
+                         const u32* __restrict__ vids,
+                         const u32* __restrict__ vsizes, i64 n,
+                         const i64* __restrict__ tile_off,
+                         const i64* __restrict__ n_hot,
+                         u32* __restrict__ okeys, u32* __restrict__ ovids,
+                         u32* __restrict__ ovsizes) {
+  __shared__ int warp_hot[kPartTile / 32];
+  const i64 i = (i64)blockIdx.x * kPartTile + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool h = i < n && hot[i];
+  const unsigned ballot = __ballot_sync(0xffffffffu, h);
+  if (lane == 0) warp_hot[warp] = __popc(ballot);
+  __syncthreads();
+  if (i >= n) return;
+  i64 before = tile_off[blockIdx.x] + __popc(ballot & ((1u << lane) - 1u));
+  for (int w = 0; w < warp; ++w) before += warp_hot[w];
+  const i64 dst = h ? before : *n_hot + i - before;
+  okeys[dst] = keys[i];
+  ovids[dst] = vids[i];
+  ovsizes[dst] = vsizes[i];
+}
+
+// ---------------------------------------------------------------------------
+// page_gather: replaces page_gather_pallas (src/repro/kernels/paged_gather/
+// kernel.py:30).  Output page (b, p) is a copy of pool page table[b, p];
+// both are page_bytes contiguous bytes, so the kernel is dtype-blind.
+//
+// Bound: bytes (each gathered page read once, the output written once).
+// The TPU kernel let scalar-prefetched indices drive its block index map;
+// here one CTA per output page reads its own table entry and copies the
+// page with 16-byte vector loads where the page size and the base
+// addresses allow (the wrapper decides), else byte by byte.
+template <typename V>
+__global__ void __launch_bounds__(kCopyThreads)
+page_gather_kernel(const int32_t* __restrict__ table,
+                   const unsigned char* __restrict__ pages, i64 page_bytes,
+                   unsigned char* __restrict__ out) {
+  const i64 slot = blockIdx.x;
+  const V* src = (const V*)(pages + (i64)table[slot] * page_bytes);
+  V* dst = (V*)(out + slot * page_bytes);
+  const i64 n = page_bytes / (i64)sizeof(V);
+  for (i64 t = threadIdx.x; t < n; t += blockDim.x) dst[t] = src[t];
+}
+
 }  // namespace
 
 extern "C" {
@@ -424,6 +645,88 @@ int gather_min64(const void* bits, i64 d, i64 w, const void* idx, i64 nq,
   gather_min64_kernel<<<blocks_for(nq, kProbeThreads), kProbeThreads, 0,
                         (cudaStream_t)stream>>>(
       (const u64*)bits, d, w, (const i64*)idx, nq, (u64*)out);
+  return (int)cudaGetLastError();
+}
+
+
+int gc_lookup(const void* q, i64 nq, const void* keys, const void* vids,
+              const void* vfiles, i64 n, void* found, void* vid, void* vfile,
+              void* stream) {
+  gc_lookup_kernel<<<blocks_for(nq, kProbeThreads), kProbeThreads, 0,
+                     (cudaStream_t)stream>>>(
+      (const u32*)q, nq, (const u32*)keys, (const u32*)vids,
+      (const u32*)vfiles, n, (bool*)found, (u32*)vid, (u32*)vfile);
+  return (int)cudaGetLastError();
+}
+
+// nbits in [1, 2^32); words holds at least ceil(nbits / 32) words.
+int bloom_probe(const void* q, i64 nq, const void* words, i64 nbits, i64 k,
+                void* out, void* stream) {
+  bloom_probe_kernel<<<blocks_for(nq, kProbeThreads), kProbeThreads, 0,
+                       (cudaStream_t)stream>>>(
+      (const u32*)q, nq, (const u32*)words, (u32)nbits, k, (bool*)out);
+  return (int)cudaGetLastError();
+}
+
+// na + nb >= 1.  Two launches: the co-rank scatter, then the keep marks.
+int merge_dedup(const void* ak, const void* as, const void* av, i64 na,
+                const void* bk, const void* bs, const void* bv, i64 nb,
+                void* ok, void* os, void* ov, void* keep, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const i64 n = na + nb;
+  merge_scatter_kernel<<<blocks_for(n, kProbeThreads), kProbeThreads, 0,
+                         st>>>(
+      (const u32*)ak, (const u32*)as, (const u32*)av, na, (const u32*)bk,
+      (const u32*)bs, (const u32*)bv, nb, (u32*)ok, (u32*)os, (u32*)ov);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  merge_keep_kernel<<<blocks_for(n, kProbeThreads), kProbeThreads, 0, st>>>(
+      (const u32*)ok, n, (bool*)keep);
+  return (int)cudaGetLastError();
+}
+
+// Records per tile of the partition passes; scratch holds one int64 per
+// tile.
+i64 scav_partition_tile() { return kPartTile; }
+
+// n >= 1; scratch: ceil(n / kPartTile) int64; n_hot: one int64.
+int hot_cold_partition(const void* keys, const void* hot, const void* vids,
+                       const void* vsizes, i64 n, void* scratch, void* okeys,
+                       void* ovids, void* ovsizes, void* n_hot,
+                       void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const i64 ntiles = (n + kPartTile - 1) / kPartTile;
+  partition_count_kernel<<<(unsigned)ntiles, kPartTile, 0, st>>>(
+      (const bool*)hot, n, (i64*)scratch);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  partition_scan_kernel<<<1, 1024, 0, st>>>((i64*)scratch, ntiles,
+                                            (i64*)n_hot);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  partition_scatter_kernel<<<(unsigned)ntiles, kPartTile, 0, st>>>(
+      (const u32*)keys, (const bool*)hot, (const u32*)vids,
+      (const u32*)vsizes, n, (const i64*)scratch, (const i64*)n_hot,
+      (u32*)okeys, (u32*)ovids, (u32*)ovsizes);
+  return (int)cudaGetLastError();
+}
+
+// slots = B * P >= 1 output pages; table entries already checked to lie in
+// [0, N) by the wrapper; vec16 != 0 when page_bytes and both base
+// addresses are multiples of 16.
+int page_gather(const void* table, i64 slots, const void* pages,
+                i64 page_bytes, i64 vec16, void* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec16) {
+    page_gather_kernel<uint4><<<(unsigned)slots, kCopyThreads, 0, st>>>(
+        (const int32_t*)table, (const unsigned char*)pages, page_bytes,
+        (unsigned char*)out);
+  } else {
+    page_gather_kernel<unsigned char><<<(unsigned)slots, kCopyThreads, 0,
+                                        st>>>(
+        (const int32_t*)table, (const unsigned char*)pages, page_bytes,
+        (unsigned char*)out);
+  }
   return (int)cudaGetLastError();
 }
 

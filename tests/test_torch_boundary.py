@@ -2,7 +2,8 @@
 
 * The port imports neither JAX nor anything of the reference package:
   checked on the source (AST) and on a live import in a fresh interpreter.
-* ``Store`` runs on CUDA unless told otherwise, and raises without it.
+* ``Store`` and the kernel benchmark run on CUDA unless told otherwise,
+  and raise without it.
 * A kernel wrapper given CUDA tensors launches its kernel or raises; it
   never runs the plain version.  No card here, so the tensors only report
   a CUDA device and the launch is mocked.
@@ -25,7 +26,12 @@ import torch
 
 import repro.core as R
 import repro_torch.core as T
+from repro_torch.kernels.bloom import ops as bloom_ops
+from repro_torch.kernels.gc_lookup import ops as gc_ops
 from repro_torch.kernels.lookup_probe import ops as probe_ops
+from repro_torch.kernels.merge import ops as merge_ops
+from repro_torch.kernels.paged_gather import ops as paged_ops
+from repro_torch.kernels.partition import ops as partition_ops
 from repro_torch.kernels.run_coalesce import ops as coalesce_ops
 from repro_torch.kernels.segment_reduce import ops as segment_ops
 
@@ -107,9 +113,28 @@ class _CudaLooking(torch.Tensor):
         return torch.device("cuda")
 
 
-def _cuda_looking(a) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(a, np.int64))
+def _cuda_looking(a, dtype=np.int64) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype))
     return torch.Tensor._make_subclass(_CudaLooking, t)
+
+
+# the benchmark's five wrappers: module, CUDA-looking operands
+OFFPATH = {
+    "gc_lookup": (gc_ops, lambda: tuple(
+        _cuda_looking([1, 4, 9], np.int32) for _ in range(4))),
+    "bloom_probe": (bloom_ops, lambda: (
+        _cuda_looking([3, 1, 2], np.int32),
+        _cuda_looking(np.zeros(4), np.int32), 3, 64)),
+    "merge_dedup": (merge_ops, lambda: tuple(
+        _cuda_looking([1, 4, 9], np.int32) for _ in range(6))),
+    "hot_cold_partition": (partition_ops, lambda: (
+        _cuda_looking([1, 4, 9], np.int32), _cuda_looking([1, 0, 1], bool),
+        _cuda_looking([1, 4, 9], np.int32),
+        _cuda_looking([1, 4, 9], np.int32))),
+    "page_gather": (paged_ops, lambda: (
+        torch.tensor([[0, 3], [2, 2]], dtype=torch.int32),
+        _cuda_looking(np.zeros((4, 2, 4)), np.float32))),
+}
 
 
 @pytest.fixture
@@ -129,27 +154,41 @@ def mocked_library(monkeypatch):
     def plain(*a, **k):
         raise AssertionError("a CUDA operand reached the plain version")
 
-    for mod in (probe_ops, coalesce_ops, segment_ops):
+    for mod in (probe_ops, coalesce_ops, segment_ops, gc_ops, bloom_ops,
+                merge_ops, partition_ops, paged_ops):
         monkeypatch.setattr(mod, "launch", launch)
         monkeypatch.setattr(mod, "outputs", cpu_outputs)
     monkeypatch.setattr(coalesce_ops, "smem_sort_cap", lambda: 8192)
+    monkeypatch.setattr(partition_ops, "partition_tile", lambda: 1024)
+    monkeypatch.setattr(paged_ops, "upload", lambda t, device: t)
     for name in ("rank_probe_ref", "lookup_probe_ref", "count_le_ref",
                  "interval_rank_ref"):
         monkeypatch.setattr(probe_ops, name, plain)
     monkeypatch.setattr(coalesce_ops, "run_coalesce_ref", plain)
     for name in ("segment_sum_ref", "gather_min64_ref"):
         monkeypatch.setattr(segment_ops, name, plain)
+    for name, (mod, _) in OFFPATH.items():
+        monkeypatch.setattr(mod, f"{name}_ref", plain)
     for fn in (probe_ops.rank_probe, probe_ops.lookup_probe,
                probe_ops.count_le, coalesce_ops.run_coalesce,
-               segment_ops.segment_sum, segment_ops.gather_min64):
+               segment_ops.segment_sum, segment_ops.gather_min64,
+               *(getattr(mod, name) for name, (mod, _) in OFFPATH.items())):
         monkeypatch.setattr(fn, "launches", 0)
     return launched
 
 
 @pytest.mark.parametrize("kernel", ["rank_probe", "lookup_probe",
                                     "count_le", "run_coalesce",
-                                    "segment_sum", "gather_min64"])
+                                    "segment_sum", "gather_min64",
+                                    *OFFPATH])
 def test_cuda_operands_launch_the_kernel(mocked_library, kernel):
+    if kernel in OFFPATH:
+        mod, args = OFFPATH[kernel]
+        fn = getattr(mod, kernel)
+        fn(*args())
+        assert mocked_library == [kernel]
+        assert fn.launches == 1
+        return
     q = _cuda_looking([3, 1, 2])
     run = _cuda_looking([1, 2, 5, 9])
     args = {"rank_probe": (q, run), "count_le": (q, run),
@@ -182,9 +221,51 @@ def test_failed_launch_raises_and_never_falls_back(mocked_library,
     assert probe_ops.rank_probe.launches == 0
 
 
+@pytest.mark.parametrize("kernel", list(OFFPATH))
+def test_failed_launch_of_a_benchmark_kernel_raises_and_never_falls_back(
+        mocked_library, monkeypatch, kernel):
+    mod, args = OFFPATH[kernel]
+
+    def refused(name, device, *a):
+        raise RuntimeError(f"CUDA kernel {name} failed")
+    monkeypatch.setattr(mod, "launch", refused)
+    fn = getattr(mod, kernel)
+    with pytest.raises(RuntimeError, match=f"{kernel} failed"):
+        fn(*args())
+    assert fn.launches == 0
+
+
+def test_kernel_list_holds_all_eleven_wrappers():
+    from repro_torch import kernels
+    assert [f.__name__ for f in kernels.KERNELS] == [
+        "lookup_probe", "rank_probe", "count_le", "run_coalesce",
+        "segment_sum", "gather_min64", *OFFPATH]
+    assert all(hasattr(f, "launches") for f in kernels.KERNELS)
+
+
 def test_kernels_build_nothing_at_import():
     from repro_torch.kernels import common
     assert common.library.cache_info().currsize == 0
+
+
+def test_kernel_bench_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from repro_torch.bench import kernels as bench
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.run()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.run("cuda", "bench")
+
+
+def test_kernel_bench_command_defaults_to_cuda_and_fails_without_it():
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+           "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "-m", "repro_torch.bench.kernels",
+                          "--shapes", "bench"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert "kernels/" not in out.stdout            # printed no result
 
 
 # --------------------------------------- engines, durability, observers

@@ -135,3 +135,65 @@ def test_store_on_card_matches_cpu(cuda, engine):
         store.drain()
         return store.stats(), vids
     assert run(cuda, kernel_min_batch=1) == run("cpu", use_kernels=False)
+
+
+def _u32(a, device):
+    from repro_torch.kernels.common import u32_tensor
+    return u32_tensor(np.asarray(a), device)
+
+
+def _offpath_cases(kernel, device):
+    """Operand tuples for one benchmark kernel: the reference bench's shapes
+    and the edges (empty, one, ragged tiles, keys at the top of u32)."""
+    from repro_torch.bench import kernels as B
+    rng = np.random.default_rng(9)
+    out = [B.operands(c, device) for c in B.bench_cases() if c.kernel == kernel]
+    keys = np.sort(rng.choice(2**32 - 2, 3000, replace=False)).astype(
+        np.uint32)
+    keys[-1] = 0xFFFFFFFD
+    if kernel == "gc_lookup":
+        for n, q in ((0, 5), (1, 1), (3000, 0), (3000, 4097)):
+            qs = np.concatenate([keys[:q // 2], [0xFFFFFFFE, 0xFFFFFFFF],
+                                 rng.integers(0, 2**32, q, dtype=np.uint64)
+                                 .astype(np.uint32)])[:q]
+            out.append(tuple(_u32(a, device) for a in
+                             (qs, keys[:n], keys[:n] + 1, keys[:n] % 97)))
+    elif kernel == "bloom_probe":
+        from repro_torch.kernels import bloom_build
+        words, k, nbits = bloom_build(_u32(keys, device))
+        for q in (0, 1, 4097):
+            out.append((_u32(np.resize(keys, q), device), words, k, nbits))
+    elif kernel == "merge_dedup":
+        seq = rng.integers(0, 2**32, 3000, dtype=np.uint64).astype(np.uint32)
+        for na, nb in ((0, 0), (0, 7), (7, 0), (1, 1), (3000, 3000)):
+            a = (keys[:na], np.zeros(na, np.uint32), seq[:na])
+            b = (keys[:nb], seq[:nb] | 1, seq[:nb])
+            out.append(tuple(_u32(c, device) for c in (*a, *b)))
+    elif kernel == "hot_cold_partition":
+        for n, share in ((0, .3), (1, 1.), (1025, 0.), (1025, 1.),
+                         (5000, .3)):
+            hot = torch.from_numpy(rng.random(n) < share).to(device)
+            out.append((_u32(keys[:n] if n <= 3000 else np.resize(keys, n),
+                             device), hot,
+                        _u32(np.arange(n), device), _u32(np.full(n, 7),
+                                                         device)))
+    else:
+        for dtype, ps, d in ((torch.bfloat16, 3, 5), (torch.int32, 4, 256),
+                             (torch.bfloat16, 16, 128)):
+            pages = torch.from_numpy(rng.standard_normal((32, ps, d)) * 10)
+            table = torch.from_numpy(rng.integers(0, 32, (3, 5)).astype(
+                np.int32))
+            out.append((table, pages.to(dtype).to(device)))
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["gc_lookup", "bloom_probe", "merge_dedup",
+                                    "hot_cold_partition", "page_gather"])
+def test_benchmark_kernels_match_plain(cuda, kernel):
+    fn = getattr(K, kernel)
+    plain = getattr(K, kernel + "_ref")
+    for args in _offpath_cases(kernel, cuda):
+        got, want = fn(*args), plain(*args)
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        _equal(got, want)

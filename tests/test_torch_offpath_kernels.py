@@ -1,0 +1,467 @@
+"""The port's GC-Lookup, bloom, merge, partition and paged-gather plain
+versions, and its bloom build, against the reference package.
+
+Each wrapper of ``repro_torch.kernels`` runs its plain torch version on
+CPU tensors.  The same NumPy-seeded inputs go through the reference's ops
+wrappers (Pallas in interpret mode, as ``tests/test_kernels.py`` runs them)
+and its ``ref.py`` oracles, at the shapes of ``tests/test_kernels.py``.
+Every output must be equal exactly: u32 columns as bits, pages bit for bit.
+``merge_dedup`` equals ``ref.py`` row for row and the Pallas wrapper on the
+surviving rows (the network may order the two copies of a key otherwise).
+Where the Pallas wrappers' padding changes the answer (a key or query equal
+to a pad value, duplicate keys in a GC-Lookup run) the port follows
+``ref.py`` and is held against it alone.  The CUDA kernels run only on the
+card (``chip_smoke.py``, ``tests/test_torch_cuda.py``); their placement
+arithmetic (co-rank merge, prefix-count partition) is mirrored in NumPy
+here.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from numpy.testing import assert_array_equal
+
+from _hypothesis_support import given, settings, st
+
+from repro import kernels as R
+from repro_torch import kernels as T
+from repro_torch.bench import kernels as B
+from repro_torch.kernels.common import u32_tensor
+
+BOUNDARY = 0xFFFFFFFD       # largest key the reference's u32 ops accept
+
+
+def u32(t: torch.Tensor) -> np.ndarray:
+    """int32 bit-view tensor (or bool tensor) -> NumPy u32 (or bool)."""
+    a = t.numpy()
+    return a.view(np.uint32) if a.dtype == np.int32 else a
+
+
+def equal(got, want) -> None:
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        assert g.shape == w.shape
+        assert_array_equal(g.astype(np.int64), w.astype(np.int64))
+
+
+# --------------------------------------------------------------- gc_lookup
+def _gc_port(queries, keys, vids, vfiles):
+    got = T.gc_lookup(*(u32_tensor(a) for a in (queries, keys, vids, vfiles)))
+    assert got[0].dtype == torch.bool and got[1].dtype == torch.int32
+    return [u32(t) for t in got]
+
+
+def _gc_oracle(queries, keys, vids, vfiles):
+    return [np.asarray(x) for x in R.gc_lookup_ref(
+        jnp.asarray(queries), jnp.asarray(keys), jnp.asarray(vids),
+        jnp.asarray(vfiles))]
+
+
+@pytest.mark.parametrize("q,n", [(1, 10), (17, 100), (300, 1000),
+                                 (256, 512), (5, 2000)])
+def test_gc_lookup_matches_reference(q, n):
+    rng = np.random.default_rng(q * 1000 + n)
+    s_keys = np.sort(rng.choice(np.arange(1, 10 * n, dtype=np.uint32),
+                                size=n, replace=False))
+    s_vids = rng.integers(1, 1 << 30, n).astype(np.uint32)
+    s_vf = rng.integers(1, 1 << 20, n).astype(np.uint32)
+    queries = np.concatenate([
+        rng.choice(s_keys, q // 2 + 1),
+        rng.integers(10 * n, 20 * n, q - q // 2 - 1).astype(np.uint32)])[:q]
+    got = _gc_port(queries, s_keys, s_vids, s_vf)
+    equal(got, R.gc_lookup(queries, s_keys, s_vids, s_vf))
+    equal(got, _gc_oracle(queries, s_keys, s_vids, s_vf))
+
+
+@pytest.mark.parametrize("case", ["boundary", "duplicates", "empty_run",
+                                  "no_queries", "one_each"])
+def test_gc_lookup_edges_follow_the_oracle(case):
+    """Keys at the top of the u32 range, queries equal to the Pallas pads,
+    duplicate keys (the oracle takes the first, the Pallas kernel sums
+    them), an empty run, no queries, one query into a run of one."""
+    rng = np.random.default_rng(5)
+    keys = np.sort(rng.choice(np.arange(1, 5000, dtype=np.uint32), 300,
+                              replace=False))
+    if case == "boundary":
+        keys[-3:] = [BOUNDARY - 2, BOUNDARY - 1, BOUNDARY]
+        queries = np.array([BOUNDARY, BOUNDARY - 1, 0xFFFFFFFE, 0xFFFFFFFF,
+                            keys[0], 0], np.uint32)
+    elif case == "duplicates":
+        keys = np.sort(np.concatenate([keys, keys[::7]]))
+        queries = np.concatenate([keys[::5], [0, 6000]]).astype(np.uint32)
+    elif case == "empty_run":
+        keys, queries = keys[:0], keys[:4]
+    elif case == "no_queries":
+        queries = keys[:0]
+    else:
+        keys, queries = keys[:1], keys[:1]
+    vids = (keys * 3 + 1).astype(np.uint32)
+    vfiles = np.arange(len(keys), dtype=np.uint32)
+    got = _gc_port(queries, keys, vids, vfiles)
+    if len(keys):
+        equal(got, _gc_oracle(queries, keys, vids, vfiles))
+    pos = np.searchsorted(keys, queries)             # first equal entry
+    hit = (pos < len(keys)) & (keys[np.minimum(pos, max(len(keys) - 1, 0))]
+                               == queries) if len(keys) else \
+        np.zeros(len(queries), bool)
+    assert_array_equal(got[0], hit)
+    assert_array_equal(got[1][hit], vids[pos[hit]])
+    assert_array_equal(got[2][hit], vfiles[pos[hit]])
+    assert (got[1][~hit] == 0).all() and (got[2][~hit] == 0).all()
+    if case != "duplicates":
+        low = queries <= BOUNDARY                    # where the pads agree
+        ref = R.gc_lookup(queries, keys, vids, vfiles)
+        equal([g[low] for g in got], [np.asarray(r)[low] for r in ref])
+
+
+@pytest.mark.parametrize("bad", ["key_at_pad", "key_above_u32",
+                                 "negative_key", "query_above_u32",
+                                 "vid_above_u32", "u64_that_fits"])
+def test_gc_lookup_refuses_what_does_not_fit_u32(bad):
+    # the port takes u32 bit views only: every u64 (int64) column raises,
+    # those the reference refuses and those it would narrow alike
+    keys = np.array([3, 9, 12], np.uint64)
+    queries = np.array([9, 4], np.uint64)
+    vids = np.array([1, 2, 3], np.uint64)
+    if bad == "key_at_pad":
+        keys[-1] = 2**32 - 2
+    elif bad == "key_above_u32":
+        keys[-1] = 2**40
+    elif bad == "negative_key":
+        keys[-1] = 2**64 - 1                 # -1 as an int64 pattern
+    elif bad == "query_above_u32":
+        queries[0] = 2**32
+    elif bad == "vid_above_u32":
+        vids[0] = 2**32
+    cols = [torch.from_numpy(a.view(np.int64).copy())
+            for a in (queries, keys, vids, vids)]
+    with pytest.raises(ValueError, match="gc_lookup"):
+        T.gc_lookup(*cols)
+    if bad.startswith("key"):
+        # the reference refuses these too, where JAX keeps u64 columns
+        with jax.enable_x64(True), pytest.raises(AssertionError):
+            R.gc_lookup(queries, keys, vids, vids)
+
+
+@settings(max_examples=20, deadline=None)
+@given(st.lists(st.integers(0, 2**20), min_size=1, max_size=200, unique=True),
+       st.lists(st.integers(0, 2**20), min_size=1, max_size=100))
+def test_gc_lookup_property(skeys, queries):
+    s_keys = np.sort(np.array(skeys, np.uint32))
+    s_vids = s_keys + 7
+    s_vf = s_keys % 97
+    q = np.array(queries, np.uint32)
+    got = _gc_port(q, s_keys, s_vids, s_vf)
+    equal(got, R.gc_lookup(q, s_keys, s_vids, s_vf))
+    member = np.isin(q, s_keys)
+    assert_array_equal(got[0], member)
+    assert_array_equal(got[1][member], (q + 7)[member])
+
+
+# ------------------------------------------------------------------- bloom
+def _bloom_keys(rng, n, top=False):
+    keys = rng.choice(np.arange(1, 1 << 24, dtype=np.uint32), n,
+                      replace=False)
+    if top:          # the top of the u32 range: every masked step matters
+        keys[:4] = [0xFFFFFFFF, 0xFFFFFFFE, 0x80000000, 0x7FFFFFFF]
+    return keys
+
+
+@pytest.mark.parametrize("n,q,top", [(10, 5, False), (1000, 300, False),
+                                     (5000, 1000, False), (64, 40, True)])
+def test_bloom_matches_reference(n, q, top):
+    rng = np.random.default_rng(n)
+    keys = _bloom_keys(rng, n, top)
+    words, k, nbits = R.bloom_build(keys)
+    pw, pk, pn = T.bloom_build(u32_tensor(keys))
+    assert (pk, pn) == (k, nbits)
+    assert_array_equal(u32(pw), np.asarray(words))      # identical filter
+    probes = np.concatenate([keys[:q // 2],
+                             rng.integers(1 << 24, 1 << 25,
+                                          q - q // 2).astype(np.uint32)])
+    got = T.bloom_probe(u32_tensor(probes), pw, k, nbits).numpy()
+    assert_array_equal(got, np.asarray(R.bloom_probe(probes, words, k,
+                                                     nbits)))
+    assert_array_equal(got, np.asarray(R.bloom_probe_ref(
+        jnp.asarray(probes), words, k, nbits)))
+    assert got[:q // 2].all(), "bloom false negative"
+
+
+@settings(max_examples=10, deadline=None)
+@given(st.lists(st.integers(0, 2**32 - 1), min_size=1, max_size=80,
+                unique=True),
+       st.lists(st.integers(0, 2**32 - 1), min_size=0, max_size=40),
+       st.sampled_from([4, 10]))
+def test_bloom_property(keys, probes, bits_per_key):
+    """Any u32 keys: the same words, no false negative, the same probes."""
+    keys = np.array(keys, np.uint32)
+    probes = np.concatenate([keys, np.array(probes, np.uint32)])
+    words, k, nbits = R.bloom_build(keys, bits_per_key)
+    pw, pk, pn = T.bloom_build(u32_tensor(keys), bits_per_key)
+    assert (pk, pn) == (k, nbits)
+    assert_array_equal(u32(pw), np.asarray(words))
+    got = T.bloom_probe(u32_tensor(probes), pw, k, nbits).numpy()
+    assert_array_equal(got, np.asarray(R.bloom_probe_ref(
+        jnp.asarray(probes), words, k, nbits)))
+    assert got[:len(keys)].all()
+
+
+def test_bloom_probe_checks_its_filter():
+    w = u32_tensor(np.zeros(4, np.uint32))
+    q = u32_tensor(np.arange(3, dtype=np.uint32))
+    assert T.bloom_probe(q, w, 0, 128).all()          # no probe: may contain
+    for k, nbits in ((3, 129), (3, 0), (-1, 64)):
+        with pytest.raises(ValueError, match="bloom_probe"):
+            T.bloom_probe(q, w, k, nbits)
+    with pytest.raises(ValueError, match="int32"):
+        T.bloom_probe(q.to(torch.int64), w, 3, 64)
+
+
+# ------------------------------------------------------------------- merge
+def _merge_port(a, b):
+    got = T.merge_dedup(*(u32_tensor(c) for c in (*a, *b)))
+    assert got[3].dtype == torch.bool
+    return [u32(t) for t in got]
+
+
+def _merge_oracle(a, b):
+    return [np.asarray(x) for x in R.merge_dedup_ref(
+        *(jnp.asarray(c) for c in (*a, *b)))]
+
+
+def _survivors(out):
+    keys, seqs, vids, keep = (np.asarray(o) for o in out)
+    return sorted(zip(keys[keep].tolist(), seqs[keep].tolist(),
+                      vids[keep].tolist()))
+
+
+def _co_rank_mirror(a, b):
+    """The CUDA kernel's placement, in NumPy: an A row at i + #{B < a}, a
+    B row at j + #{A <= b}, in the order of (key << 32 | ~seq)."""
+    def packed(run):
+        k, s = run[0].astype(np.uint64), run[1].astype(np.uint64)
+        return (k << np.uint64(32)) | (np.uint64(0xFFFFFFFF) - s)
+    pa, pb = packed(a), packed(b)
+    na, nb = len(pa), len(pb)
+    pos_a = np.arange(na) + np.searchsorted(pb, pa, side="left")
+    pos_b = np.arange(nb) + np.searchsorted(pa, pb, side="right")
+    out = [np.zeros(na + nb, np.uint32) for _ in range(3)]
+    for c in range(3):
+        out[c][pos_a] = a[c]
+        out[c][pos_b] = b[c]
+    keep = np.ones(na + nb, bool)
+    keep[1:] = out[0][1:] != out[0][:-1]
+    return out + [keep]
+
+
+def _runs(rng, na, nb, space=1000):
+    ak = np.sort(rng.choice(np.arange(space, dtype=np.uint32), na,
+                            replace=False))
+    bk = np.sort(rng.choice(np.arange(space, dtype=np.uint32), nb,
+                            replace=False))
+    aseq = rng.integers(0, 1000, na).astype(np.uint32) * 2        # even
+    bseq = rng.integers(0, 1000, nb).astype(np.uint32) * 2 + 1    # odd
+    avid = rng.integers(0, 1 << 30, na).astype(np.uint32)
+    bvid = rng.integers(0, 1 << 30, nb).astype(np.uint32)
+    return (ak, aseq, avid), (bk, bseq, bvid)
+
+
+@pytest.mark.parametrize("na,nb", [(1, 1), (10, 3), (100, 100), (64, 257)])
+def test_merge_dedup_matches_reference(na, nb):
+    a, b = _runs(np.random.default_rng(na * 97 + nb), na, nb)
+    got = _merge_port(a, b)
+    equal(got, _merge_oracle(a, b))                   # row for row
+    assert _survivors(got) == _survivors(R.merge_dedup(*a, *b))
+    equal(got, _co_rank_mirror(a, b))
+
+
+@pytest.mark.parametrize("case", ["a_empty", "b_empty", "both_empty",
+                                  "shared_keys", "equal_rows", "top_keys",
+                                  "extreme_seqs"])
+def test_merge_dedup_edges_follow_the_oracle(case):
+    """Empty runs, runs sharing every key, rows equal in key and seq (A
+    first), key 0xFFFFFFFF (the Pallas pad) and seqs at 0 and 2^32 - 1."""
+    rng = np.random.default_rng(11)
+    a, b = _runs(rng, 50, 40)
+    if case == "a_empty":
+        a = tuple(c[:0] for c in a)
+    elif case == "b_empty":
+        b = tuple(c[:0] for c in b)
+    elif case == "both_empty":
+        a, b = tuple(c[:0] for c in a), tuple(c[:0] for c in b)
+    elif case == "shared_keys":
+        b = (a[0].copy(), a[1] + 1, a[2] + 5)
+    elif case == "equal_rows":
+        b = (a[0].copy(), a[1].copy(), a[2] + 5)
+    elif case == "top_keys":
+        a[0][-2:] = [0xFFFFFFFE, 0xFFFFFFFF]
+        b[0][-1] = 0xFFFFFFFF
+    else:
+        a[1][:] = 0
+        b = (a[0].copy(), np.full(len(a[0]), 0xFFFFFFFF, np.uint32), a[2] + 5)
+    got = _merge_port(a, b)
+    equal(got, _co_rank_mirror(a, b))
+    if len(a[0]) + len(b[0]):
+        equal(got, _merge_oracle(a, b))
+    else:
+        assert all(len(g) == 0 for g in got)
+    if case in ("shared_keys", "extreme_seqs"):     # one newest copy
+        assert _survivors(got) == _survivors(R.merge_dedup(*a, *b))
+
+
+@settings(max_examples=15, deadline=None)
+@given(st.lists(st.integers(0, 50), min_size=1, max_size=60, unique=True),
+       st.lists(st.integers(0, 50), min_size=1, max_size=60, unique=True))
+def test_merge_dedup_property_newest_wins(akeys, bkeys):
+    ak = np.sort(np.array(akeys, np.uint32))
+    bk = np.sort(np.array(bkeys, np.uint32))
+    a = (ak, np.full(len(ak), 10, np.uint32), ak + 1)
+    b = (bk, np.full(len(bk), 20, np.uint32), bk + 2)     # b is newer
+    got = _merge_port(a, b)
+    equal(got, _merge_oracle(a, b))
+    equal(got, _co_rank_mirror(a, b))
+    kept = dict(zip(got[0][got[3]].tolist(), got[2][got[3]].tolist()))
+    expect = {int(k): int(k) + 1 for k in ak}
+    expect.update({int(k): int(k) + 2 for k in bk})
+    assert kept == expect
+
+
+# --------------------------------------------------------------- partition
+def _partition_port(keys, hot, vids, vsz):
+    got = T.hot_cold_partition(u32_tensor(keys), torch.from_numpy(hot),
+                               u32_tensor(vids), u32_tensor(vsz))
+    assert got[3].dtype == torch.int64 and got[3].shape == (1,)
+    return [u32(t) for t in got[:3]], int(got[3])
+
+
+def _prefix_mirror(keys, hot, vids, vsz):
+    """The CUDA kernel's placement, in NumPy: a hot record at its exclusive
+    hot prefix h(i), a cold one at n_hot + i - h(i)."""
+    h = np.cumsum(hot) - hot
+    dst = np.where(hot, h, hot.sum() + np.arange(len(hot)) - h)
+    out = [np.zeros(len(hot), np.uint32) for _ in range(3)]
+    for o, c in zip(out, (keys, vids, vsz)):
+        o[dst] = c
+    return out
+
+
+@pytest.mark.parametrize("n,share", [(1, 0.3), (7, 0.3), (64, 0.3),
+                                     (500, 0.3), (0, 0.3), (100, 1.0),
+                                     (100, 0.0), (1030, 0.3)])
+def test_partition_matches_reference(n, share):
+    rng = np.random.default_rng(n)
+    keys = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    hot = rng.random(n) < share
+    vids = rng.integers(0, 1 << 30, n).astype(np.uint32)
+    vsz = rng.integers(1, 1 << 16, n).astype(np.uint32)
+    got, n_hot = _partition_port(keys, hot, vids, vsz)
+    gk, gv, gs, gcnt = R.hot_cold_partition(keys, hot, vids, vsz)
+    assert n_hot == int(gcnt) == hot.sum()
+    equal(got, (gk, gv, gs))
+    if n:
+        wk, wv, ws, wcnt = R.hot_cold_partition_ref(
+            jnp.asarray(keys), jnp.asarray(hot), jnp.asarray(vids),
+            jnp.asarray(vsz))
+        assert int(wcnt) == n_hot
+        equal(got, (wk, wv, ws))
+    equal(got, _prefix_mirror(keys, hot, vids, vsz))
+
+
+# ------------------------------------------------------------ paged gather
+@pytest.mark.parametrize("b,p,npages,psize,d,dtype", [
+    (1, 1, 4, 8, 128, jnp.float32),
+    (4, 8, 64, 16, 128, jnp.float32),
+    (2, 4, 16, 8, 64, jnp.bfloat16),
+    (3, 5, 32, 4, 256, jnp.int32),
+    (2, 3, 5, 3, 5, jnp.bfloat16),          # a page of 30 bytes
+])
+def test_page_gather_matches_reference(b, p, npages, psize, d, dtype):
+    rng = np.random.default_rng(b * 100 + p)
+    pages = jnp.asarray(
+        rng.standard_normal((npages, psize, d)) * 10).astype(dtype)
+    table = rng.integers(0, npages, (b, p)).astype(np.int32)
+    tdtype = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16,
+              jnp.int32: torch.int32}[dtype]
+    host = np.array(pages.astype(jnp.float32) if dtype != jnp.int32
+                    else pages)
+    tpages = torch.from_numpy(host).to(tdtype)
+    got = T.page_gather(torch.from_numpy(table), tpages)
+    assert got.shape == (b, p * psize, d) and got.dtype == tdtype
+    want = R.page_gather(table, pages)
+    bits = {torch.bfloat16: torch.int16}.get(tdtype, torch.int32)
+    want_bits = np.asarray(want).view(
+        np.int16 if tdtype == torch.bfloat16 else np.int32)
+    assert_array_equal(got.view(bits).numpy(), want_bits)   # bit for bit
+    assert_array_equal(np.asarray(R.page_gather_ref(jnp.asarray(table),
+                                                    pages)),
+                       np.asarray(want))
+
+
+@pytest.mark.parametrize("entry", [-1, 16])
+def test_page_gather_refuses_entries_outside_the_pool(entry):
+    pages = torch.zeros((16, 2, 4))
+    table = torch.tensor([[0, entry]], dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"\[0, 16\)"):
+        T.page_gather(table, pages)
+    # the reference's gather clamps it instead
+    got = R.page_gather(table.numpy(), jnp.asarray(pages.numpy()))
+    assert got.shape == (1, 4, 4)
+    with pytest.raises(ValueError, match="host"):
+        T.page_gather(table.to(torch.int64), pages)
+
+
+# ----------------------------------------------------------- the bench
+def _reference_outputs(case: B.Case):
+    """The reference's op on the case's host operands."""
+    host = [a.numpy() if isinstance(a, torch.Tensor) else a
+            for a in case.args]
+    host = [a.view(np.uint32) if isinstance(a, np.ndarray)
+            and a.dtype == np.int32 and case.kernel != "page_gather" else a
+            for a in host]
+    if case.kernel == "gc_lookup":
+        return R.gc_lookup(*host)
+    if case.kernel == "bloom_probe":
+        return (R.bloom_probe(host[0], jnp.asarray(host[1]), host[2],
+                              host[3]),)
+    if case.kernel == "merge_dedup":
+        return R.merge_dedup_ref(*(jnp.asarray(a) for a in host))
+    if case.kernel == "hot_cold_partition":
+        out = R.hot_cold_partition(*host)
+        return (*out[:3], np.array([out[3]]))
+    return (R.page_gather(host[0], jnp.asarray(host[1])),)
+
+
+@pytest.mark.parametrize("kernel", list(B.ROW_NAMES))
+def test_bench_cases_equal_the_reference(kernel):
+    (case,) = [c for c in B.bench_cases() if c.kernel == kernel]
+    got = B.wrapper(case)(*B.operands(case, "cpu"))
+    got = got if isinstance(got, tuple) else (got,)
+    got = [u32(t) if t.dtype != torch.float32 else t.numpy() for t in got]
+    equal(got, _reference_outputs(case))
+    if kernel == "bloom_probe":       # the filter equals the reference's too
+        keys = np.sort(B.bench_cases()[0].args[1].numpy().view(np.uint32))
+        assert_array_equal(u32(case.args[1]),
+                           np.asarray(R.bloom_build(keys)[0]))
+
+
+def test_bench_runs_on_the_cpu_with_the_reference_row_contract():
+    rows = B.run("cpu", "bench")
+    assert [r["name"] for r in rows] == [
+        "kernels/gc_lookup", "kernels/bloom_probe", "kernels/merge_dedup",
+        "kernels/partition", "kernels/page_gather"]
+    for r in rows:
+        assert set(r) == {"name", "us_per_call", "derived"}
+        assert isinstance(r["us_per_call"], float) and r["us_per_call"] > 0
+        fields = dict(kv.split("=", 1) for kv in r["derived"].split())
+        assert float(fields["ref_us"]) > 0 and int(fields["bytes"]) > 0
+        assert fields["shapes"] == "bench"
+
+
+def test_bench_refuses_unknown_shapes():
+    with pytest.raises(ValueError, match="shapes"):
+        B.cases("huge")
