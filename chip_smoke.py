@@ -12,7 +12,8 @@ Phases, each of which raises on failure (exit code != 0):
 2. kernels — each of the six CUDA kernels against its plain torch version
              on the card, at adversarial shapes (Q=1, N=0, N=1, duplicate
              keys, queries at the run's min and max, keys >= 2^32 and
-             >= 2^63, coalesce columns past the shared-memory sort cap;
+             >= 2^63, coalesce columns past the shared-memory sort cap,
+             coalesce keys of 0 to 64 bits and all pairs equal;
              empty, all-masked and out-of-range ids, one slot; D from 1 to
              4, W not a power of two, counters of 0.0 and -0.0 and patterns
              that differ only in the low 32 bits); outputs must be equal
@@ -70,8 +71,9 @@ Phases, each of which raises on failure (exit code != 0):
 smaller store (2^18 keys), against the port under ``DIR/repro_torch``
 (default ``src``); ``python3 chip_smoke.py --kernel-times [--src DIR]``
 only builds that port's library and times ``segment_sum`` and
-``gather_min64`` at the adaptive run's shapes.  Run either on two trees in
-one call to compare them.
+``gather_min64`` at the adaptive run's shapes and ``run_coalesce`` at M
+from 64 to 8,192 beside ``torch.sort``.  Run either on two trees in one
+call to compare them.
 
 Device times come from the profiler, each kernel's mean over the launches
 that three sessions recorded (late in a long process a session loses
@@ -159,7 +161,10 @@ def call_ms(fn, iters: int = 50, warmup: int = 3) -> float:
 
 # device function names of kernels.cu (the profiler reports them demangled)
 CUDA_KERNELS = ("rank_probe_kernel", "lookup_probe_kernel", "count_le_kernel",
-                "coalesce_smem_kernel", "pack_kernel", "bitonic_stage_kernel",
+                "coalesce_radix_kernel", "pack_kernel", "bitonic_stage_kernel",
+                # the one-CTA bitonic sort of trees before the radix sort,
+                # for --kernel-times --src on such a tree
+                "coalesce_smem_kernel",
                 "mark_kernel", "segment_sum_kernel", "gather_min64_kernel",
                 # segment_sum zeroes its counts with a memset on the stream
                 "Memset",
@@ -352,11 +357,19 @@ def _check_probe_case(rng, device, n, q, hi, errs, *, dup=False,
             f"interval_rank disagrees with numpy at n={n} q={q} hi={hi}")
 
 
-def _check_coalesce_case(rng, device, m, errs, hi_rank, hi_pos):
+def _check_coalesce_case(rng, device, m, errs, hi_rank, hi_pos, *,
+                         pin=False, equal=False):
+    """Pairs below (hi_rank, hi_pos); ``pin``: the largest drawn, so the
+    key's width is exactly the bits of hi - 1 each; ``equal``: every pair
+    the same."""
     import numpy as np
     from repro_torch import kernels
     r = rng.integers(0, hi_rank, m).astype(np.int64)
     p = rng.integers(0, hi_pos, m).astype(np.int64)
+    if pin:
+        r[0], p[0] = hi_rank - 1, hi_pos - 1
+    if equal:
+        r[:], p[:] = r[0], p[0]
     if m > 2:
         r[-1], p[-1] = r[0], p[0]             # a duplicate pair
     rt, pt = u64_tensor(r, device), u64_tensor(p, device)
@@ -431,9 +444,19 @@ def kernel_phase(device) -> dict:
             (20000, 4096, 2**40, {"edge": True})):
         _check_probe_case(rng, device, n, q, hi, errs, **kw)
     for m, hr, hp in ((1, 4, 4), (2, 1, 2), (3, 2, 2), (100, 3, 50),
-                      (4096, 400, 3000), (cap, 1000, 2**32 - 2),
-                      (cap + 1, 10, 2**20), (20000, 2**32 - 2, 200)):
+                      (1000, 400, 2**16), (4096, 400, 3000),
+                      (cap, 1000, 2**32 - 2), (cap + 1, 10, 2**20),
+                      (20000, 2**32 - 2, 200)):
         _check_coalesce_case(rng, device, m, errs, hr, hp)
+    # the one-CTA radix sort's key widths: all 64 bits in use (8 passes),
+    # exactly 32 and 33 (the u32/u64 key switch), pos_bits 32 and 0 in a
+    # u32 key, one bit; every pair equal, every pair (0, 0) (no pass)
+    for m, hr, hp in ((4096, 2**32 - 1, 2**32 - 1), (cap, 2**32 - 1, 2**32 - 1),
+                      (4096, 2**12, 2**20), (4096, 2**13, 2**20),
+                      (4096, 1, 2**32 - 1), (4096, 2**32 - 1, 1), (cap, 2, 2)):
+        _check_coalesce_case(rng, device, m, errs, hr, hp, pin=True)
+    for m, hr, hp in ((1000, 400, 2**16), (4096, 1, 1), (cap, 2**32 - 1, 5)):
+        _check_coalesce_case(rng, device, m, errs, hr, hp, equal=True)
     _check_segment_cases(rng, device, errs)
     log("[kernels] max abs err at adversarial shapes: " + json.dumps(errs))
     for k, e in errs.items():
@@ -1055,16 +1078,15 @@ def shapes_phase(capture: Capture, launches: dict) -> list:
            lambda: torch.searchsorted(mo, qo, right=True),
            8 * nq + 16 * n + 8 * nq, nq * (math.log2(n + 1) + 1))
 
+    # operations: a comparison sort's m log2 m, and the marks' 4 a pair
     (r, p), kw = best["run_coalesce"][1], best["run_coalesce"][2]
     m = r.shape[0]
-    mp = 1 << max(1, (m - 1).bit_length())
-    stages = math.log2(mp) * (math.log2(mp) + 1) / 2
     packed = u64_order((r << 32) | p)
     record("run_coalesce", (r, p),
            lambda: kernels.run_coalesce(r, p, **kw),
            lambda: kernels.run_coalesce_ref(r, p, kw.get("window")),
            lambda: torch.sort(packed),
-           16 * m + 18 * m, mp / 2 * stages + 4 * m)
+           16 * m + 18 * m, m * max(1.0, math.log2(m)) + 4 * m)
 
     # segment_sum's time holds its memset of the counts; one id -> one add
     ids, slots = best["segment_sum"][1]
@@ -1369,12 +1391,21 @@ def crossover_only(src: Path) -> None:
 
 
 # ------------------------------------------------------------- main
+COALESCE_TIMES_M = (64, 256, 1024, 4096, 8192)
+
+
 def kernel_times_only(src: Path) -> None:
     """Build the port under ``src`` and time ``segment_sum`` and
     ``gather_min64`` at the adaptive run's largest inputs (1,018 ids into
-    32,576 slots; a 2 x 4,096 sketch and 5,433 queries) on seeded data:
-    the build's wall time, and each kernel's device time per launch in
-    three profiler sessions of 200 launches each and by ``queued_ms``."""
+    32,576 slots; a 2 x 4,096 sketch and 5,433 queries) and
+    ``run_coalesce`` at M in ``COALESCE_TIMES_M`` (ranks below M / 10 as
+    one multi_get's vSSTs, positions below 2^12 as the 2,621 records of a
+    1 GiB store's vSST) on
+    seeded data: the build's wall time, and each kernel's device time per
+    launch in three profiler sessions of 200 launches each and by
+    ``queued_ms``; for ``run_coalesce`` also the wrapper call
+    (``call_ms``) and ``torch.sort`` of the packed pairs beside it, after
+    holding the kernel against its plain version."""
     import numpy as np
     import torch
     sys.path.insert(0, str(src.resolve()))
@@ -1397,6 +1428,25 @@ def kernel_times_only(src: Path) -> None:
         out[name] = [device_ms(fn, iters=200, only=CUDA_KERNELS, label=name)
                      for _ in range(3)]
         out[name + "_queued"] = queued_ms(fn, 200)
+    for m in COALESCE_TIMES_M:
+        r = torch.from_numpy(rng.integers(0, max(2, m // 10), m)).to("cuda")
+        p = torch.from_numpy(rng.integers(0, 1 << 12, m)).to("cuda")
+        err = max_abs_err(kernels.run_coalesce(r, p),
+                          kernels.run_coalesce_ref(r, p))
+        require(err == 0, f"run_coalesce disagrees with its plain version "
+                          f"at m={m}")
+        packed = (r << 32) | p
+
+        def coalesce():
+            return kernels.run_coalesce(r, p)
+        out[f"run_coalesce_{m}"] = {
+            "ms": [device_ms(coalesce, iters=200, only=CUDA_KERNELS,
+                             label=f"run_coalesce {m}") for _ in range(3)],
+            "queued_ms": queued_ms(coalesce, 200),
+            "call_ms": call_ms(coalesce, iters=200),
+            "sort_ms": [device_ms(lambda: torch.sort(packed), iters=200,
+                                  label=f"torch.sort {m}")
+                        for _ in range(3)]}
     print(json.dumps({"kernel_times": out}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -1418,7 +1468,8 @@ def main(argv) -> int:
                     help="run only phase 4, on a 2^18-key store")
     ap.add_argument("--kernel-times", action="store_true",
                     help="only build the library and time segment_sum and "
-                         "gather_min64 at the adaptive run's shapes")
+                         "gather_min64 at the adaptive run's shapes and "
+                         "run_coalesce at M from 64 to 8,192")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="directory holding the repro_torch package")
     args = ap.parse_args(argv)

@@ -44,10 +44,10 @@ class AdaptiveScavengerEngine(ScavengerEngine):
     name = "scavenger_adaptive"
     adaptive_enabled = True
 
-    def __init__(self, cfg, device=None):
-        super().__init__(cfg, device)
+    def __init__(self, cfg):
+        super().__init__(cfg)
         if cfg.adaptive_enabled:
-            self.tracker = AccessTracker.from_config(cfg, device)
+            self.tracker = AccessTracker.from_config(cfg, self.device)
             self.tempmap = TemperatureMap(self.tracker, cfg.temp_hot_mult,
                                           cfg.temp_cold_mult)
         else:

@@ -41,10 +41,12 @@ class EngineStrategy:
     index_decoupled: bool = False
     hotcold_write: bool = False
     adaptive_enabled: bool = False    # workload tracker (core/adaptive/)
+    # the store's device, for routed state; ``make_strategy`` sets it on
+    # the instance before ``__init__`` runs
+    device = None
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg):
         self.cfg = cfg
-        self.device = device    # the store's device, for routed state
 
     # ============================================== workload observation
     def observe_batch(self, store, kind: str, keys, vsizes=None) -> None:

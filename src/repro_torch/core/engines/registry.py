@@ -35,8 +35,16 @@ def get_strategy_class(name: str) -> type[EngineStrategy]:
 
 def make_strategy(cfg, device=None) -> EngineStrategy:
     """The strategy ``cfg`` names; routed state (the adaptive tracker's
-    batches) runs on ``device``."""
-    return get_strategy_class(cfg.engine)(cfg, device)
+    batches) runs on ``device``.
+
+    Strategies take the reference's constructor, ``__init__(self, cfg)``,
+    so the device is set on the new object before its ``__init__`` runs:
+    a constructor that builds routed state reads ``self.device``."""
+    cls = get_strategy_class(cfg.engine)
+    strat = cls.__new__(cls)
+    strat.device = device
+    strat.__init__(cfg)
+    return strat
 
 
 def available_engines() -> tuple[str, ...]:

@@ -279,13 +279,13 @@ class Store(ScalarOps):
         not found), ``etype``."""
         keys = np.atleast_1d(np.asarray(keys, np.uint64))
         n = len(keys)
-        self.n_user_ops += n
         if self.durability is not None:
             # reads are journaled too: under the two-lane clock they move
             # background scheduling, so byte-identical recovery must replay
             # them (DESIGN.md §9)
             self.wal_index += 1
             self.durability.log_reads(self.wal_index, keys)
+        self.n_user_ops += n
         with self.obs.span(self, "multi_get", n=n), self.io.batched(n):
             res = self.lookup_entries(keys, sio.CAT_FG_READ)
             live = res["found"] & (res["etype"] != ETYPE_TOMB)
@@ -312,10 +312,10 @@ class Store(ScalarOps):
         starts = np.atleast_1d(np.asarray(starts)).astype(np.int64)
         counts = np.broadcast_to(np.asarray(count, np.int64),
                                  starts.shape)
-        self.n_user_ops += len(starts)
         if self.durability is not None:
             self.wal_index += 1
             self.durability.log_scans(self.wal_index, starts, counts)
+        self.n_user_ops += len(starts)
         out = []
         with self.obs.span(self, "multi_scan", n=len(starts)), \
                 self.io.batched(len(starts)):
@@ -590,8 +590,8 @@ class Store(ScalarOps):
             vf[idx] = fids
         t = SSTable(cfg, "k", cfg.ksst_layout, keys, seqs, ety, vids, vsz, vf)
         t.compensated_extra = int(vsz[ety == ETYPE_REF].sum())
-        self._crashpoint("mid_flush")   # vSSTs cut, kSST not yet live
         self.io.seq_write(t.file_bytes, sio.CAT_FLUSH)
+        self._crashpoint("mid_flush")   # vSSTs cut, kSST not yet live
         self.version.add_l0(t)
         self._log_edit("add_file", fid=t.fid, level=0, nbytes=t.file_bytes)
 

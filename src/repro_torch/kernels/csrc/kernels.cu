@@ -19,6 +19,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 typedef unsigned long long u64;
 typedef long long i64;
 typedef uint32_t u32;
@@ -27,10 +29,26 @@ namespace {
 
 constexpr int kProbeThreads = 256;
 constexpr int kCoalesceThreads = 1024;
-// pairs sorted inside one CTA's shared memory (8 B each: 64 KB dynamic
-// shared memory, above the 48 KB default, so the opt-in attribute is set);
-// the wrapper reads it through scav_smem_sort_cap()
+constexpr int kCoalesceWarps = kCoalesceThreads / 32;
+static_assert(kCoalesceWarps <= 32, "the radix scan reads one warp total "
+                                    "a lane");
+// pairs sorted inside one CTA's shared memory; the wrapper reads it
+// through scav_smem_sort_cap()
 constexpr i64 kSmemSortCap = 8192;
+// keys a thread holds in registers during the one-CTA sort
+constexpr int kCoalesceItems = (int)(kSmemSortCap / kCoalesceThreads);
+static_assert(kSmemSortCap % kCoalesceThreads == 0, "whole items a thread");
+// the radix digit (7 bits: the 1 GiB store's ~21-bit keys in three passes;
+// 5-8 bits measured alike, PERF.md); the digit counts, one per (digit, warp)
+// at d * kCountStride + w (one pad a digit, so a warp's counts of different
+// digits fall in different banks); and the one-CTA sort's dynamic shared
+// memory at the cap: the sorted column (8 B a pair) and the counts.  81 KB
+// is above the 48 KB default, so the opt-in attribute is set once.
+constexpr int kDigitBits = 7;
+constexpr int kCountStride = kCoalesceWarps + 1;
+constexpr int kCountBytes =
+    (1 << kDigitBits) * kCountStride * (int)sizeof(u32);
+constexpr int kCoalesceSmem = (int)(kSmemSortCap * sizeof(u64)) + kCountBytes;
 
 // #{run < q} over an ascending run (searchsorted side='left'); T is u64
 // for the store's keys, u32 for the benchmark kernels' keys.
@@ -133,22 +151,48 @@ __global__ void count_le_kernel(const u64* __restrict__ q, i64 nq,
 }
 
 // ---------------------------------------------------------------------------
-// run_coalesce: replaces run_coalesce_pallas (run_coalesce/kernel.py:47).
-// Sort the (file-rank, pos) pairs lexicographically, keep the first of
-// each duplicate, and start a run at a file change, at a position gap > 1,
-// and (window > 0) every `window` kept records since the run's start.
+// run_coalesce: replaces run_coalesce_pallas (src/repro/kernels/run_coalesce/
+// kernel.py:47).  Sort the (file-rank, pos) pairs lexicographically, keep
+// the first of each duplicate, and start a run at a file change, at a
+// position gap > 1, and (window > 0) every `window` kept records since the
+// run's start.
 //
-// Bound: latency and synchronisation.  M is one multi_get's fetch count
-// (a few thousand pairs, 8 B each), so the bytes bound is well under a
-// microsecond; the bitonic network's log2(M)*(log2(M)+1)/2 barrier-separated
-// stages and the serial chunks of the scan set the time.  Design: each pair
-// packs into one u64 (rank << 32 | pos), so the lexicographic order is the
-// integer order and one compare-exchange moves both fields.  Up to
-// kSmemSortCap pairs sort in one CTA's shared memory and the marks follow
-// in the same CTA, so the column makes one round trip to device memory.
-// Longer columns sort in global memory, one launch per network stage, and
-// a one-CTA pass marks them.  Padding is all-ones, sorts after every real
-// pair (ranks < 2^32 - 1), and is never written out.
+// Bound: latency and instruction issue in one SM.  M is one multi_get's
+// fetch count (a few thousand pairs, 16 B each in and 18 B out), so the
+// bytes bound is well under a microsecond, and so few keys are one CTA's
+// work: the barriers are CTA barriers.  The TPU kernel ran a bitonic network (no
+// per-lane scatter there), and the first port did too: log2(M) *
+// (log2(M) + 1) / 2 barrier-separated stages over 64-bit keys, 78 at
+// M = 4,096.  Radix and not bitonic: a radix pass costs four barriers and
+// a fixed number of instructions a key whatever M is, so the time is
+// passes x (barriers + a warp's share of the keys) instead of
+// log2(M)^2 / 2 barrier rounds.
+//
+// Design (M <= kSmemSortCap, the main path): one CTA, an LSD radix sort of
+// the pairs packed as rank << pos_bits | pos over only the bits in use.
+// A block OR of the loaded pairs gives rank_bits and pos_bits; the key is a
+// u32 when they sum to <= 32 (one multi_get's ranks index a few hundred
+// vSSTs, its positions a vSST's records), else a u64.  The sort takes
+// ceil(bits / kDigitBits) passes: 3 at the 1 GiB store's widths, 10 when
+// all 64 bits are in use, none when every pair is (0, 0).  Each warp owns a
+// contiguous range of 32-key chunks and holds its keys in registers
+// (kCoalesceItems a thread).  A pass: the lanes of a chunk with equal
+// digits found by one ballot a digit bit (__match_any_sync measured
+// slower); per-warp digit counts, the lowest lane of each group adding it,
+// and each key's rank among its warp's keys of that digit read back from
+// the count before the add; one exclusive scan over (digit, warp); a
+// scatter into the shared column at the scanned count + the rank; and the
+// keys reread from there.  Keys are ranked in (warp, chunk, lane) order,
+// which is index order, so each pass is stable and LSD is correct; equal
+// keys are duplicate pairs, whose order reaches no output.  The last pass
+// writes the pairs back as rank << 32 | pos, and mark_runs marks them in
+// the same CTA, so the column makes one round trip to device memory.  No
+// library sort: the counts, the scan and the scatter are all here.
+//
+// Longer columns (M > kSmemSortCap, off the main path) pad to a power of
+// two with all-ones pairs (which sort after every real pair: ranks are
+// < 2^32 - 1), sort in global memory by the bitonic network, one launch per
+// stage, and a one-CTA pass marks them.
 
 __device__ __forceinline__ u64 pack_pair(const i64* __restrict__ rank,
                                          const i64* __restrict__ pos,
@@ -239,23 +283,207 @@ __device__ void mark_runs(const u64* s, i64 m, i64 window,
   }
 }
 
-__global__ void __launch_bounds__(kCoalesceThreads)
-coalesce_smem_kernel(const i64* __restrict__ rank, const i64* __restrict__ pos,
-                     i64 m, i64 mp, i64 window, i64* __restrict__ rank_s,
-                     i64* __restrict__ pos_s, bool* __restrict__ keep,
-                     bool* __restrict__ start) {
-  extern __shared__ u64 s[];
-  for (i64 t = threadIdx.x; t < mp; t += blockDim.x)
-    s[t] = pack_pair(rank, pos, m, t);
+// Inclusive sum across the warp's lanes.
+__device__ __forceinline__ u32 warp_inclusive_sum(u32 v) {
+  const int lane = threadIdx.x & 31;
+  for (int o = 1; o < 32; o <<= 1) {
+    const u32 u = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += u;
+  }
+  return v;
+}
+
+// The scan of one radix pass: counts[d * kCountStride + w], warp w's count
+// of digit d, becomes the number of keys before warp w's keys of digit d
+// in the pass's output (keys of smaller digits, and of digit d in earlier
+// warps): an exclusive scan in (digit, warp) order, the pad slots zero.
+// Each thread sums a contiguous slice; the slices' offsets come from one
+// shuffle scan a warp and the warp totals, in two barrier rounds.
+__device__ void scan_digit_counts(u32* counts, u32* warp_tot) {
+  constexpr int n = (1 << kDigitBits) * kCountStride;
+  constexpr int per = (n + kCoalesceThreads - 1) / kCoalesceThreads;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lo = threadIdx.x * per;
+  u32 v[per], sum = 0;
+#pragma unroll
+  for (int j = 0; j < per; ++j) {
+    v[j] = lo + j < n ? counts[lo + j] : 0u;
+    sum += v[j];
+  }
+  const u32 incl = warp_inclusive_sum(sum);
+  if (lane == 31) warp_tot[warp] = incl;
   __syncthreads();
-  for (i64 k = 2; k <= mp; k <<= 1) {
-    for (i64 j = k >> 1; j > 0; j >>= 1) {
-      for (i64 t = threadIdx.x; t < mp / 2; t += blockDim.x)
-        compare_exchange(s, t, j, k);
-      __syncthreads();
+  u32 before = lane < warp ? warp_tot[lane] : 0u;   // the earlier warps
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    before += __shfl_xor_sync(0xffffffffu, before, o);
+  u32 run = before + incl - sum;
+#pragma unroll
+  for (int j = 0; j < per; ++j) {
+    if (lo + j < n) counts[lo + j] = run;
+    run += v[j];
+  }
+  __syncthreads();
+}
+
+// The lanes of this warp whose digit d equals this lane's, among the lanes
+// in `valid`: one ballot a digit bit.
+__device__ __forceinline__ u32 digit_peers(u32 d, u32 valid) {
+  u32 peers = valid;
+#pragma unroll
+  for (int b = 0; b < kDigitBits; ++b) {
+    const u32 bit = (d >> b) & 1u;
+    const u32 ones = __ballot_sync(0xffffffffu, bit);
+    peers &= bit ? ones : ~ones;
+  }
+  return peers;
+}
+
+// LSD radix sort of the CTA's pairs (r, p: this thread's items, chunk c of
+// its warp's range at index first + 32 * c) as K keys r << pos_bits | p of
+// `bits` bits; writes the sorted pairs to col[0, m) as rank << 32 | pos.
+template <typename K>
+__device__ void radix_sort_pairs(const u32 (&r)[kCoalesceItems],
+                                 const u32 (&p)[kCoalesceItems], int m,
+                                 int cpw, int pos_bits, int bits, u64* col,
+                                 u32* counts, u32* warp_tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int first = warp * cpw * 32 + lane;
+  const u32 lower = (1u << lane) - 1u;      // the lanes below this one
+  const u64 pos_mask = (1ull << pos_bits) - 1ull;
+  K key[kCoalesceItems];
+#pragma unroll
+  for (int c = 0; c < kCoalesceItems; ++c)
+    key[c] = (K)(((u64)r[c] << pos_bits) | p[c]);
+  const u32 dmask = (1u << kDigitBits) - 1u;
+  const int passes = (bits + kDigitBits - 1) / kDigitBits;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int shift = pass * kDigitBits;
+    const bool last = pass == passes - 1;
+#pragma unroll
+    for (int d = lane; d <= (int)dmask; d += 32) {
+      counts[d * kCountStride + warp] = 0;
+      if (warp == 0) counts[d * kCountStride + kCoalesceWarps] = 0;   // pad
+    }
+    __syncwarp();
+    // counts: each chunk's groups of equal digits (all chunks' ballots
+    // first, so they overlap), then chunk by chunk the lowest lane of each
+    // group adds the group to the warp's count of the digit, and the count
+    // before the add, read back by its peers, gives each key its rank among
+    // its warp's keys of that digit (__syncwarp orders one chunk's adds
+    // before the next chunk's, which another lane may make)
+    u32 rank[kCoalesceItems];               // the peers, then the ranks
+#pragma unroll
+    for (int c = 0; c < kCoalesceItems; ++c) {
+      if (c >= cpw) break;                 // uniform across the warp
+      const int left = m - (first - lane + 32 * c);   // keys from the chunk
+      rank[c] = digit_peers((u32)(key[c] >> shift) & dmask,
+                            left >= 32 ? 0xffffffffu
+                                       : left > 0 ? (1u << left) - 1u : 0u);
+    }
+#pragma unroll
+    for (int c = 0; c < kCoalesceItems; ++c) {
+      if (c >= cpw) break;
+      const bool ok = first + 32 * c < m;
+      const u32 d = (u32)(key[c] >> shift) & dmask;
+      const u32 peers = rank[c];
+      const int leader = (__ffs(peers) - 1) & 31;
+      u32 before = 0;
+      if (ok && lane == leader)
+        before = atomicAdd(&counts[d * kCountStride + warp], __popc(peers));
+      rank[c] = __shfl_sync(0xffffffffu, before, leader) +
+                __popc(peers & lower);
+      __syncwarp();
+    }
+    __syncthreads();
+    scan_digit_counts(counts, warp_tot);
+#pragma unroll
+    for (int c = 0; c < kCoalesceItems; ++c) {
+      if (c >= cpw) break;
+      if (first + 32 * c < m) {
+        const u32 d = (u32)(key[c] >> shift) & dmask;
+        const u32 at = counts[d * kCountStride + warp] + rank[c];
+        if (last) {
+          const u64 k = key[c];
+          col[at] = ((k >> pos_bits) << 32) | (k & pos_mask);
+        } else {
+          ((K*)col)[at] = key[c];
+        }
+      }
+    }
+    __syncthreads();
+    if (!last) {
+#pragma unroll
+      for (int c = 0; c < kCoalesceItems; ++c)
+        if (c < cpw && first + 32 * c < m)
+          key[c] = ((const K*)col)[first + 32 * c];
     }
   }
-  mark_runs(s, m, window, rank_s, pos_s, keep, start);
+  if (passes == 0) {          // every pair is (0, 0): already in order
+#pragma unroll
+    for (int c = 0; c < kCoalesceItems; ++c)
+      if (c < cpw && first + 32 * c < m) col[first + 32 * c] = 0;
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kCoalesceThreads)
+coalesce_radix_kernel(const i64* __restrict__ rank,
+                      const i64* __restrict__ pos, int m, i64 window,
+                      i64* __restrict__ rank_s, i64* __restrict__ pos_s,
+                      bool* __restrict__ keep, bool* __restrict__ start) {
+  extern __shared__ u64 col[];                    // m sorted pairs
+  u32* counts = (u32*)(col + m);                  // digit counts
+  __shared__ u32 used[2];                         // OR of ranks, positions
+  __shared__ u32 warp_tot[kCoalesceWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // warp w owns chunks [w * cpw, (w + 1) * cpw) of 32 consecutive pairs
+  const int cpw = (((m + 31) >> 5) + kCoalesceWarps - 1) / kCoalesceWarps;
+  const int first = warp * cpw * 32 + lane;
+  if (threadIdx.x == 0) used[0] = used[1] = 0;
+  u32 r[kCoalesceItems], p[kCoalesceItems];
+  u32 r_or = 0, p_or = 0;
+#pragma unroll
+  for (int c = 0; c < kCoalesceItems; ++c) {
+    const int i = first + 32 * c;
+    const bool ok = c < cpw && i < m;
+    r[c] = ok ? (u32)rank[i] : 0u;
+    p[c] = ok ? (u32)pos[i] : 0u;
+    r_or |= r[c];
+    p_or |= p[c];
+  }
+  r_or = __reduce_or_sync(0xffffffffu, r_or);
+  p_or = __reduce_or_sync(0xffffffffu, p_or);
+  __syncthreads();                                // used[] zeroed
+  if (lane == 0) {
+    atomicOr(&used[0], r_or);
+    atomicOr(&used[1], p_or);
+  }
+  __syncthreads();
+  const int pos_bits = 32 - __clz(used[1]);
+  const int bits = pos_bits + 32 - __clz(used[0]);
+  if (bits <= 32)
+    radix_sort_pairs<u32>(r, p, m, cpw, pos_bits, bits, col, counts,
+                          warp_tot);
+  else
+    radix_sort_pairs<u64>(r, p, m, cpw, pos_bits, bits, col, counts,
+                          warp_tot);
+  mark_runs(col, m, window, rank_s, pos_s, keep, start);
+}
+
+// Raise the one-CTA sort's dynamic shared memory limit once per device.
+cudaError_t coalesce_smem_opt_in() {
+  static std::atomic<u64> done{0};                // a bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const u64 bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(coalesce_radix_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kCoalesceSmem);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 __global__ void pack_kernel(const i64* __restrict__ rank,
@@ -592,19 +820,17 @@ int count_le(const void* q, i64 nq, const void* mins, i64 n, const void* maxs,
 }
 
 // mp: the power of two >= max(m, 2); scratch: mp u64 of device memory when
-// mp > kSmemSortCap, else unused.
+// mp > kSmemSortCap, else unused.  m >= 1.
 int run_coalesce(const void* rank, const void* pos, i64 m, i64 mp,
                  void* scratch, i64 window, void* rank_s, void* pos_s,
                  void* keep, void* start, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (mp <= kSmemSortCap) {
-    const int smem = (int)(mp * sizeof(u64));
-    cudaError_t err = cudaFuncSetAttribute(
-        coalesce_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(kSmemSortCap * sizeof(u64)));
+    cudaError_t err = coalesce_smem_opt_in();
     if (err != cudaSuccess) return (int)err;
-    coalesce_smem_kernel<<<1, kCoalesceThreads, smem, st>>>(
-        (const i64*)rank, (const i64*)pos, m, mp, window, (i64*)rank_s,
+    const int smem = (int)(m * sizeof(u64)) + kCountBytes;
+    coalesce_radix_kernel<<<1, kCoalesceThreads, smem, st>>>(
+        (const i64*)rank, (const i64*)pos, (int)m, window, (i64*)rank_s,
         (i64*)pos_s, (bool*)keep, (bool*)start);
     return (int)cudaGetLastError();
   }

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ast
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -57,6 +58,20 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_source_imports_no_jax_or_reference(path):
     bad = _imported_roots(path) & set(FORBIDDEN)
     assert not bad, f"{path.name} imports {sorted(bad)}"
+
+
+def test_cuda_sources_include_no_cub_or_thrust():
+    """The kernels' sorts, scans and scatters are written in the repo:
+    no CUDA source includes CUB's or thrust's finished algorithms."""
+    srcs = sorted(p for p in (REPO / "src" / "repro_torch" / "kernels"
+                              / "csrc").rglob("*")
+                  if p.suffix in (".cu", ".cuh"))
+    assert srcs
+    include = re.compile(r"^\s*#\s*include\s*[<\"](cub|thrust)/")
+    for path in srcs:
+        bad = [line for line in path.read_text().splitlines()
+               if include.match(line)]
+        assert not bad, f"{path.name}: {bad}"
 
 
 def test_port_import_and_run_load_no_jax_or_reference():

@@ -77,6 +77,52 @@ def test_run_coalesce_matches_plain(cuda, m, window):
            K.run_coalesce_ref(r, p, window))
 
 
+def _coalesce_pairs(rng, m, rank_bits, pos_bits):
+    """m pairs below 2^bits each, the largest pinned so that exactly
+    rank_bits + pos_bits key bits are in use (32 bits: below 2^32 - 1)."""
+    def col(bits):
+        hi = min(1 << bits, (1 << 32) - 1)
+        c = rng.integers(0, hi, m)
+        c[0] = hi - 1
+        return c
+    return col(rank_bits), col(pos_bits)
+
+
+# the radix sort's key widths: u32 keys up to 32 bits (pos_bits 0 and 32
+# at the ends), u64 keys from 33 bits to all 64; every pair (0, 0) takes no
+# pass, every pair equal one pass or more
+@pytest.mark.parametrize("window", [None, 3])
+@pytest.mark.parametrize("m,rank_bits,pos_bits", [
+    (1, 12, 16), (2, 12, 16), (3, 12, 16), (1000, 12, 16), (4096, 12, 16),
+    ("cap", 12, 16), ("cap+1", 12, 16), (4096, 0, 0), (4096, 12, 20),
+    (4096, 13, 20), (4096, 0, 32), (4096, 32, 0), (4096, 32, 32),
+    ("cap", 32, 32), ("cap", 1, 1)])
+def test_run_coalesce_key_widths_match_plain(cuda, m, rank_bits, pos_bits,
+                                             window):
+    from repro_torch.kernels.common import smem_sort_cap
+    if isinstance(m, str):
+        m = smem_sort_cap() + (m == "cap+1")
+    rng = np.random.default_rng(m + 64 * rank_bits + pos_bits)
+    r, p = _coalesce_pairs(rng, m, rank_bits, pos_bits)
+    rt, pt = _col(r, cuda), _col(p, cuda)
+    got = K.run_coalesce(rt, pt, window=window)
+    _equal(got, K.run_coalesce_ref(rt, pt, window))
+    order = np.lexsort((p, r))
+    assert (got[0].cpu().numpy() == r[order]).all()
+    assert (got[1].cpu().numpy() == p[order]).all()
+
+
+@pytest.mark.parametrize("m", [2, 1000, 4096])
+def test_run_coalesce_all_pairs_equal(cuda, m):
+    r = _col(np.full(m, 7), cuda)
+    p = _col(np.full(m, 123456), cuda)
+    for window in (None, 1):
+        rank_s, pos_s, keep, start = K.run_coalesce(r, p, window=window)
+        _equal((rank_s, pos_s, keep, start),
+               K.run_coalesce_ref(r, p, window))
+        assert int(keep.sum()) == 1 and bool(keep[0]) and bool(start[0])
+
+
 @pytest.mark.parametrize("m,slots", [(0, 8), (1, 1), (13, 7), (300, 64),
                                      (8192, 8192), (1024, 32768), (5, 0)])
 def test_segment_sum_matches_plain(cuda, m, slots):
