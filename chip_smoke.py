@@ -16,8 +16,13 @@ Phases, each of which raises on failure (exit code != 0):
              coalesce keys of 0 to 64 bits and all pairs equal;
              empty, all-masked and out-of-range ids, one slot; D from 1 to
              4, W not a power of two, counters of 0.0 and -0.0 and patterns
-             that differ only in the low 32 bits); outputs must be equal
-             exactly;
+             that differ only in the low 32 bits); ``lookup_probe``'s level
+             form with empty and one-key runs, zero-query segments,
+             segments straddling tiles, runs past the fence cap, k = 1..7
+             and L0 tables holding the same keys, at four tile and stride
+             choices; ``gather_min64``'s key form at widths 1, 3, 4,096 and
+             4,097, depths 1 to 4 and keys 0, 2^63 and 2^64 - 1; outputs
+             must be equal exactly;
 2b. bench  — the five kernels the store never routes to (``gc_lookup``,
              ``bloom_probe``, ``merge_dedup``, ``hot_cold_partition``,
              ``page_gather``) against their plain versions at the reference
@@ -37,7 +42,8 @@ Phases, each of which raises on failure (exit code != 0):
              of 10, every acknowledged write read back and checked against
              the vids ``Store.write`` returned.  The four probe and fetch
              kernels' launch counts are zeroed just before and read just
-             after; each must be > 0;
+             after; each must be > 0; the table probes that took the host
+             path are counted beside them;
 4. crossover — on the main run's store, the wall time of one routed call
              (upload, kernel, download) against the host NumPy path it
              replaces, per op and batch size: where routing starts to pay
@@ -54,7 +60,10 @@ Phases, each of which raises on failure (exit code != 0):
 6. shapes  — each kernel against its plain version again, on the largest
              inputs the main and adaptive runs gave it, timed with CUDA
              events beside its plain version, a PyTorch library call and
-             its bound;
+             its bound; ``lookup_probe``'s table form (at the largest
+             call's largest table) and ``gather_min64``'s index form (on
+             the largest estimate) are recorded on their own line, as the
+             forms the main path made before;
 7. parity  — the seven engines (``scavenger_adaptive`` with its tracker on
              and off) on the fixed mixed op stream of the reference
              package's parity test: the port on the card with kernels on
@@ -71,9 +80,11 @@ Phases, each of which raises on failure (exit code != 0):
 smaller store (2^18 keys), against the port under ``DIR/repro_torch``
 (default ``src``); ``python3 chip_smoke.py --kernel-times [--src DIR]``
 only builds that port's library and times ``segment_sum`` and
-``gather_min64`` at the adaptive run's shapes and ``run_coalesce`` at M
-from 64 to 8,192 beside ``torch.sort``.  Run either on two trees in one
-call to compare them.
+``gather_min64`` at the adaptive run's shapes, ``run_coalesce`` at M
+from 64 to 8,192 beside ``torch.sort``, one level's table probes as the
+store makes them (one level probe, or one launch a table on trees before
+it) with the level form's tile and stride choices, and the routed sketch
+estimate.  Run either on two trees in one call to compare them.
 
 Device times come from the profiler, each kernel's mean over the launches
 that three sessions recorded (late in a long process a session loses
@@ -426,6 +437,110 @@ def _check_segment_cases(rng, device, errs):
                 f"gather_min64 disagrees with numpy at d={d} w={w} q={q}")
 
 
+def _check_level_cases(rng, device, errs):
+    """``lookup_probe``'s level form against its plain version (and the
+    engine's ``BloomFilter`` and NumPy's ``searchsorted``): empty and
+    one-key runs, zero-query segments, segments straddling tiles, runs past
+    the fence cap (the stride widens), keys >= 2^63, k = 1..7, L0-style
+    segments sharing rows over tables that hold the same keys; at the
+    default tile and stride and at small ones."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.core.engine.keys import BloomFilter, hash_family
+    bpk = {1: 1, 2: 3, 3: 4, 4: 6, 5: 7, 6: 9, 7: 10}
+    cases = (  # run sizes, segment counts, k, key bound, shared rows
+        ([500], [200], 7, 2**40, False),
+        ([0, 300, 0, 1], [40, 60, 1, 5], 7, 2**64, False),
+        ([1, 1, 1, 200], [50, 1, 30, 70], 7, 2**64, False),
+        ([100, 200, 300, 50], [0, 120, 0, 0], 7, 2**40, False),
+        ([3000, 2000, 12000], [600, 257, 1000], 7, 2**64, False),
+        ([40] * 80, [51] * 80, 7, 2**40, False),
+        ([12000, 11000, 9000, 5], [4000] * 4, 7, 2**40, True),
+        ([2048 * 32 + 1, 70000], [3000, 2000], 7, 2**64, False),
+        *(([900, 400, 0], [250, 150, 10], k, 2**64, k % 2 == 0)
+          for k in range(1, 8)))
+    for sizes, counts, k, hi, shared in cases:
+        runs = [np.unique(rng.integers(0, hi - 1, n, dtype=np.uint64,
+                                       endpoint=True)) for n in sizes]
+        if shared and len(runs[0]):         # L0 tables holding one key set
+            runs = [runs[0]] + [np.unique(np.concatenate(
+                [r, runs[0][:50]])) for r in runs[1:]]
+        blooms = [BloomFilter(r, bpk[k]) for r in runs]
+        pool = np.concatenate(runs + [np.zeros(1, np.uint64)])
+        keys = np.concatenate([pool[rng.integers(0, len(pool), 4000)],
+                               rng.integers(0, hi - 1, 4000, dtype=np.uint64,
+                                            endpoint=True)])
+        keys[:3] = [0, 2**63, hi - 1]
+        counts = np.asarray(counts, np.int64)
+        if shared:
+            rows = np.sort(rng.choice(len(keys), counts.max(), replace=False))
+            starts = np.zeros(len(counts), np.int64)
+            counts = np.full(len(counts), len(rows), np.int64)
+        else:
+            rows = rng.integers(0, len(keys), counts.sum())
+            starts = np.cumsum(counts) - counts
+        kraw = hash_family(keys, k)
+        args = (u64_tensor(keys, device), u64_tensor(kraw, device),
+                rows.astype(np.int64), starts, counts,
+                [u64_tensor(r, device) for r in runs],
+                [u64_tensor(b.bits, device) for b in blooms],
+                [b.nbits for b in blooms])
+        want = kernels.lookup_probe_segments_ref(*args)
+        for tile, stride in ((512, 32), (32, 4), (1024, 1), (100, 8)):
+            got = kernels.lookup_probe_segments(*args, _tile=tile,
+                                                _stride=stride)
+            errs["lookup_probe"] = max(errs["lookup_probe"],
+                                       max_abs_err(got, want))
+        may, found, rank = (t.cpu().numpy() for t in got)
+        out = 0
+        for s, (run, bf) in enumerate(zip(runs, blooms)):
+            q = keys[rows[starts[s]:starts[s] + counts[s]]]
+            seg = slice(out, out + len(q))
+            out += len(q)
+            pos = np.searchsorted(run, q)
+            require((rank[seg] == pos).all()
+                    and (may[seg] == bf.may_contain(q)).all()
+                    and (found[seg] == ((pos < len(run)) & (run[np.minimum(
+                        pos, max(len(run) - 1, 0))] == q) if len(run)
+                        else False)).all(),
+                    f"lookup_probe level form disagrees with numpy at "
+                    f"sizes={sizes[:4]} k={k}")
+
+
+def _check_estimate_cases(rng, device, errs):
+    """``gather_min64``'s key form (``sketch_estimate``) against its plain
+    version and the sketch's NumPy row hash: widths 1, 3, 4,096 and 4,097,
+    depths 1 to 4, keys 0, 2^63 and 2^64 - 1, counters of 0.0 and -0.0 and
+    patterns equal in their high words."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.engine.keys import splitmix64
+    base = np.array([1.5], np.float64).view(np.uint64)[0]
+    for w in (1, 3, 4096, 4097):
+        for d in (1, 2, 3, 4):
+            vals = rng.random((d, w)) * 1e6
+            vals[rng.random((d, w)) < 0.2] = 0.0
+            pat = vals.view(np.uint64)
+            pat[0, 0] = np.array(-0.0).view(np.uint64)
+            if w > 1:
+                pat[:, 1] = base + rng.integers(0, 9, d).astype(np.uint64)
+            seeds = splitmix64(np.uint64(w) + np.arange(1, d + 1,
+                                                        dtype=np.uint64))
+            keys = rng.integers(0, 2**64 - 1, 20000, dtype=np.uint64,
+                                endpoint=True)
+            keys[:3] = [0, 2**63, 2**64 - 1]
+            bt = torch.from_numpy(pat.view(np.int64).copy()).to(device)
+            kt, st = u64_tensor(keys, device), u64_tensor(seeds, device)
+            got = kernels.sketch_estimate(bt, kt, st)
+            errs["gather_min64"] = max(errs["gather_min64"], max_abs_err(
+                (got,), (kernels.sketch_estimate_ref(bt, kt, st),)))
+            idx = splitmix64(keys[None, :] ^ seeds[:, None]) % np.uint64(w)
+            want = pat[np.arange(d)[:, None], idx.astype(np.int64)].min(0)
+            require((got.cpu().numpy().view(np.uint64) == want).all(),
+                    f"sketch_estimate disagrees with numpy at d={d} w={w}")
+
+
 def kernel_phase(device) -> dict:
     """Adversarial shapes; -> max abs error per kernel (all must be 0)."""
     import numpy as np
@@ -458,6 +573,8 @@ def kernel_phase(device) -> dict:
     for m, hr, hp in ((1000, 400, 2**16), (4096, 1, 1), (cap, 2**32 - 1, 5)):
         _check_coalesce_case(rng, device, m, errs, hr, hp, equal=True)
     _check_segment_cases(rng, device, errs)
+    _check_level_cases(rng, device, errs)
+    _check_estimate_cases(rng, device, errs)
     log("[kernels] max abs err at adversarial shapes: " + json.dumps(errs))
     for k, e in errs.items():
         require(e == 0, f"kernel {k} disagrees with its plain version")
@@ -680,16 +797,23 @@ def bench_phase(device) -> list:
 class Capture:
     """Keeps a copy of the largest inputs the store runs give each kernel
     (wraps the package-level wrappers that ``core/accel.py`` and
-    ``core/adaptive/`` call)."""
+    ``core/adaptive/`` call), and tallies the level probes' shapes."""
 
-    NAMES = ("rank_probe", "lookup_probe", "interval_rank", "run_coalesce",
-             "segment_sum", "gather_min64")
+    NAMES = ("rank_probe", "lookup_probe_segments", "interval_rank",
+             "run_coalesce", "segment_sum", "sketch_estimate")
 
     def __init__(self):
         import repro_torch.kernels as K
+        from repro_torch.core import EngineConfig
         self.K = K
         self.orig = {n: getattr(K, n) for n in self.NAMES}
         self.best: dict = {}
+        # level probes: calls, rows, segments and slots over all calls, and
+        # by segment count the calls whose every segment is under the
+        # routing floor (routed since the level's rows decide)
+        self.floor = EngineConfig.kernel_min_batch
+        self.levels = {"calls": 0, "rows": 0, "segments": 0, "slots": 0,
+                       "under_floor_by_segments": {}}
 
     def __enter__(self):
         for n in self.NAMES:
@@ -700,17 +824,32 @@ class Capture:
         for n, f in self.orig.items():
             setattr(self.K, n, f)
 
+    @staticmethod
+    def _copy(a):
+        if hasattr(a, "clone"):
+            return a.clone()
+        return a.copy() if hasattr(a, "copy") else a
+
     def _wrap(self, name, fn):
         def call(*args, **kw):
             if name == "segment_sum":     # ids + slots
                 size = args[0].shape[0] + args[1]
-            elif name == "gather_min64":  # table + queries
+            elif name == "sketch_estimate":   # table + queries
                 size = args[0].numel() + args[1].numel()
+            elif name == "lookup_probe_segments":     # slots probed
+                size = int(sum(args[4]))
+                lv = self.levels
+                lv["calls"] += 1
+                lv["rows"] += len(args[2])
+                lv["segments"] += len(args[4])
+                lv["slots"] += size
+                if max(args[4], default=0) < self.floor:
+                    by, n = lv["under_floor_by_segments"], str(len(args[4]))
+                    by[n] = by.get(n, 0) + 1
             else:   # work ~ queries x run length (first two operands)
                 size = args[0].shape[0] * (args[1].shape[0] + 1)
             if name not in self.best or size > self.best[name][0]:
-                self.best[name] = (size, [a.clone() if hasattr(a, "clone")
-                                          else a for a in args], kw)
+                self.best[name] = (size, [self._copy(a) for a in args], kw)
             return fn(*args, **kw)
         return call
 
@@ -791,8 +930,10 @@ def main_run(device, *, dataset_bytes=1 << 30, n_keys=1 << 20,
                         f"scan from {s} returned a wrong vid")
 
     from repro_torch import kernels
+    from repro_torch.core.read.lookup import lookup_entries
     for fn in kernels.KERNELS:
         fn.launches = 0
+    lookup_entries.host_table_probes = 0
     with capture if capture is not None else contextlib.nullcontext():
         timed("load", n_keys, lambda: write_pass(keys))
         for u in range(update_passes):
@@ -801,7 +942,9 @@ def main_run(device, *, dataset_bytes=1 << 30, n_keys=1 << 20,
         timed("multi_get", n_gets, lambda: gets(n_gets))
         timed("multi_scan", n_scans, scans)
     launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
-    log("[main] launches: " + json.dumps(launches))
+    host_probes = lookup_entries.host_table_probes
+    log("[main] launches: " + json.dumps(launches)
+        + f"; table probes on the host path: {host_probes}")
 
     def readback():
         for i in range(0, n_keys, batch):
@@ -828,7 +971,8 @@ def main_run(device, *, dataset_bytes=1 << 30, n_keys=1 << 20,
             us = device_busy_us(window)
             busy[name] = {"device_busy_s": us / 1e6, "wall_s": wall[0],
                           "idle_share": 1 - us / 1e6 / wall[0]}
-    out = {"phases": phases, "launches": launches, "device_busy": busy,
+    out = {"phases": phases, "launches": launches,
+           "host_table_probes": host_probes, "device_busy": busy,
            "space_amp": st["space_amp"], "write_amp": st["write_amp"],
            "n_gc_runs": st["n_gc_runs"], "n_compactions": st["n_compactions"],
            "sim_clock_s": st["clock_s"]}
@@ -949,8 +1093,10 @@ def adaptive_run(device, *, dataset_bytes=1 << 30, n_keys=1 << 20,
                 return b
         return None
 
+    from repro_torch.core.read.lookup import lookup_entries
     for fn in kernels.KERNELS:
         fn.launches = 0
+    lookup_entries.host_table_probes = 0
     with capture if capture is not None else contextlib.nullcontext():
         store = Store(cfg, durability_dir=root, device=device)
         timed("load", n_keys, lambda: [put(store, keys[i:i + batch])
@@ -976,7 +1122,9 @@ def adaptive_run(device, *, dataset_bytes=1 << 30, n_keys=1 << 20,
         require(store.stats() == before,
                 "reopened store's stats differ from those before close")
     launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
-    log("[adaptive] launches: " + json.dumps(launches))
+    host_probes = lookup_entries.host_table_probes
+    log("[adaptive] launches: " + json.dumps(launches)
+        + f"; table probes on the host path: {host_probes}")
     st = store.stats()
     wb = store.io.write_bytes
     busy = {}
@@ -996,7 +1144,8 @@ def adaptive_run(device, *, dataset_bytes=1 << 30, n_keys=1 << 20,
                           "idle_share": 1 - us / 1e6 / wall[0]}
     store.close()
     tmp.cleanup()
-    out = {"phases": phases, "launches": launches, "device_busy": busy,
+    out = {"phases": phases, "launches": launches,
+           "host_table_probes": host_probes, "device_busy": busy,
            "crash_point": crash_point, "crashed_batch": crashed,
            "space_amp": st["space_amp"], "write_amp": st["write_amp"],
            "n_gc_runs": st["n_gc_runs"],
@@ -1013,21 +1162,27 @@ def _bound(nbytes: float, nops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def shapes_phase(capture: Capture, launches: dict) -> list:
-    """Main-path inputs: exact check + timings.  -> kernel records.
+def shapes_phase(capture: Capture, launches: dict) -> tuple:
+    """Main-path inputs: exact check + timings.  -> (kernel records, the
+    records of the forms the main path no longer calls: ``lookup_probe``
+    one table a launch, ``gather_min64`` on a host-built index matrix).
 
     ``launches``: each kernel's count from the run that carries it (the
     main run for the probes and fetch planning, the adaptive run for the
     segment-reduce kernels)."""
+    import numpy as np
     import torch
     from repro_torch import kernels
-    from repro_torch.kernels.common import u64_order
+    from repro_torch.kernels.common import (probe_tile_words, splitmix64,
+                                            u64_mod, u64_order)
+    from repro_torch.kernels.lookup_probe.ops import FENCE_STRIDE, TILE
     best = capture.best
     for name in Capture.NAMES:
         require(name in best, f"no store run called {name}")
-    recs = []
+    recs, forms = [], []
 
-    def record(name, args, kern, plain, lib, nbytes, nops):
+    def record(name, args, kern, plain, lib, nbytes, nops, into=recs,
+               form=None):
         err = max_abs_err(kern(), plain())
         require(err == 0, f"{name} disagrees with its plain version at "
                           f"main-path shapes")
@@ -1044,19 +1199,50 @@ def shapes_phase(capture: Capture, launches: dict) -> list:
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": lib_ms, "call_ms": call_ms(kern),
-               "shape": [list(a.shape) if hasattr(a, "shape") else a
-                         for a in args], "events_timed": EVENTS_TIMED[n0:]}
+               "shape": [_shape(a) for a in args],
+               "events_timed": EVENTS_TIMED[n0:]}
+        if form is not None:
+            rec["form"] = form
+            rec["launches"] = None      # the main path no longer calls it
         log(f"[shapes] {json.dumps(rec)}")
-        recs.append(rec)
+        into.append(rec)
 
-    q, run, bit_idx, words = best["lookup_probe"][1]
-    nq, n, k, w = q.shape[0], run.shape[0], bit_idx.shape[1], words.shape[0]
-    qo, ro = u64_order(q), u64_order(run)
-    record("lookup_probe", (q, run, bit_idx, words),
-           lambda: kernels.lookup_probe(q, run, bit_idx, words),
-           lambda: kernels.lookup_probe_ref(q, run, bit_idx, words),
+    # the level probe (one launch a level) at the largest call; bytes:
+    # the rows, the keys and raw hashes of the rows used, the tiles, and per
+    # segment the run's fence and window sectors and the filter's words
+    # the queries read (each at most the whole run or filter), and the
+    # outputs
+    args = best["lookup_probe_segments"][1]
+    keys, kraw, rows, starts, counts, runs, words, nbits = args
+    k, slots = kraw.shape[0], int(counts.sum())
+    window = math.ceil(math.log2(FENCE_STRIDE)) + 1
+    tiles = int(sum(-(-int(c) // TILE) for c in counts))
+    seg_bytes = sum(
+        min(8 * r.shape[0], 32 * (-(-r.shape[0] // FENCE_STRIDE)
+                                  + int(c) * window))
+        + min(8 * w.shape[0], 8 * k * int(c))
+        for r, w, c in zip(runs, words, counts))
+    record("lookup_probe", args,
+           lambda: kernels.lookup_probe_segments(*args),
+           lambda: kernels.lookup_probe_segments_ref(*args), None,
+           8 * len(rows) + 8 * (k + 1) * len(np.unique(rows))
+           + 8 * probe_tile_words() * tiles + seg_bytes + 10 * slots,
+           slots * (math.log2(max(r.shape[0] for r in runs) / FENCE_STRIDE
+                              + 1) + window + 2 * k))
+    # the table form at the level's largest segment (the per-table launch
+    # the store made before the level form), for comparison
+    s = max(range(len(runs)), key=lambda i: int(counts[i])
+            * (runs[i].shape[0] + 1))
+    r = torch.as_tensor(rows[starts[s]:starts[s] + counts[s]],
+                        device=keys.device)
+    q, run, words1 = keys[r], runs[s], words[s]
+    bit_idx = u64_mod(kraw[:, r], nbits[s]).T.contiguous()
+    nq, n, w = q.shape[0], run.shape[0], words1.shape[0]
+    record("lookup_probe", (q, run, bit_idx, words1),
+           lambda: kernels.lookup_probe(q, run, bit_idx, words1),
+           lambda: kernels.lookup_probe_ref(q, run, bit_idx, words1),
            None, 8 * nq + 8 * n + 8 * nq * k + 8 * w + 10 * nq,
-           nq * (math.log2(n + 1) + 2 * k))
+           nq * (math.log2(n + 1) + 2 * k), into=forms, form="table")
 
     q, run = best["rank_probe"][1]
     nq, n = q.shape[0], run.shape[0]
@@ -1098,13 +1284,30 @@ def shapes_phase(capture: Capture, launches: dict) -> list:
            lambda: torch.bincount(valid, minlength=slots),
            8 * p + 8 * slots, p)
 
-    bits, idx = best["gather_min64"][1]
-    (d, w), q = bits.shape, idx.shape[0]
+    # the estimate with the row hash in the kernel; bytes: the table, the
+    # keys, the seeds and the estimates
+    bits, keys, seeds = best["sketch_estimate"][1]
+    (d, w), q = bits.shape, keys.shape[0]
+    record("gather_min64", (bits, keys, seeds),
+           lambda: (kernels.sketch_estimate(bits, keys, seeds),),
+           lambda: (kernels.sketch_estimate_ref(bits, keys, seeds),),
+           None, 8 * d * w + 8 * q + 8 * d + 8 * q, q * d * 16)
+    # the index form on the same estimate (the host built idx before)
+    idx = u64_mod(splitmix64(keys[:, None] ^ seeds[None, :]), w)
     record("gather_min64", (bits, idx),
            lambda: (kernels.gather_min64(bits, idx),),
            lambda: (kernels.gather_min64_ref(bits, idx),),
-           None, 8 * d * w + 8 * q * d + 8 * q, q * d)
-    return recs
+           None, 8 * d * w + 8 * q * d + 8 * q, q * d, into=forms,
+           form="index")
+    return recs, forms
+
+
+def _shape(a):
+    """A record's shape entry: a tensor's or an array's shape, a list's
+    length, a number as it is."""
+    if hasattr(a, "shape"):
+        return list(a.shape)
+    return [len(a)] if isinstance(a, (list, tuple)) else a
 
 
 # ---------------------------------------------------------- 7. parity
@@ -1252,12 +1455,15 @@ def _per_call_us(fn, iters: int) -> float:
 def crossover_phase(store, sizes=CROSSOVER_SIZES, iters=40) -> dict:
     """Wall time per call (us) of each routed op against the host NumPy
     path it replaces, per batch size: the probes and fetch planning on the
-    store's own columns, the access tracker's sketch add, lifetime observe
-    (``segment_sum``) and sketch estimate (``gather_min64``) on a tracker
-    of the 1 GiB ``scavenger_adaptive`` configuration's widths.  A routed
-    call returns host arrays, so its time holds the upload, the kernel and
-    the download.  -> {op: {"rows": [...], "crossover": the smallest size
-    from which the routed call is never slower, or None}}."""
+    store's own columns (the table probes as one level probe over the
+    level with the most files and over the level with the fewest, against
+    the host's loop over its files), the access tracker's sketch add,
+    lifetime observe (``segment_sum``) and sketch estimate
+    (``gather_min64``) on a tracker of the 1 GiB ``scavenger_adaptive``
+    configuration's widths; then ``few_files_crossover``.  A routed call
+    returns host arrays, so its time holds the upload, the kernel and the
+    download.  -> {op: {"rows": [...], "crossover": the smallest size from
+    which the routed call is never slower, or None}, "few_files": ...}."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.core import EngineConfig, accel
@@ -1267,13 +1473,13 @@ def crossover_phase(store, sizes=CROSSOVER_SIZES, iters=40) -> dict:
     from repro_torch.core.values.fetch import split_runs
     rng = np.random.default_rng(11)
     v = store.version
-    tables = [t for lvl in v.levels for t in lvl]
-    require(bool(tables), "crossover: the store has no key tables")
-    tab = max(tables, key=lambda t: len(t.keys))
     vtab = max(v.value_files.values(), key=lambda t: len(t.keys))
-    lvl = max(range(1, store.cfg.max_levels), key=lambda i: len(v.levels[i]))
-    require(len(v.levels[lvl]) > 0, "crossover: no level below L0")
+    deep = [i for i in range(1, store.cfg.max_levels) if v.levels[i]]
+    require(len(deep) > 0, "crossover: no level below L0")
+    lvl = max(deep, key=lambda i: len(v.levels[i]))
+    few = min(deep, key=lambda i: len(v.levels[i]))
     lkeys = np.concatenate([t.keys for t in v.levels[lvl]])
+    fkeys = np.concatenate([t.keys for t in v.levels[few]])
     k = BloomFilter.k_for(store.cfg.filter_bits_per_key)
     window = store.cfg.coalesce_window
     saved = getattr(store.cfg, "_kernel_policy", None)
@@ -1284,9 +1490,25 @@ def crossover_phase(store, sizes=CROSSOVER_SIZES, iters=40) -> dict:
         ks[b // 2:] = rng.integers(0, 1 << 40, b - b // 2, dtype=np.uint64)
         return ks
 
-    def lookup_host(ks, kraw):
-        may = tab.bloom.may_contain(ks, raw=kraw)
-        return may, tab.find(ks[may])
+    def level_plan(i, ks):   # the rows grouped by file, as lookup_entries
+        fidx = v.assign_files(i, ks)
+        rows = np.nonzero(fidx >= 0)[0]
+        rows = rows[np.argsort(fidx[rows], kind="stable")]
+        return (v.levels[i], rows) + np.unique(
+            fidx[rows], return_index=True, return_counts=True)
+
+    def level_host(ks, kraw, plan):
+        files, rows, fis, starts, counts = plan
+        for fi, a, c in zip(fis.tolist(), starts.tolist(), counts.tolist()):
+            r = rows[a:a + c]
+            may = files[fi].bloom.may_contain(ks[r], raw=kraw[:, r])
+            files[fi].find(ks[r][may])
+
+    def level_routed(ks, kraw, plan):
+        files, rows, fis, starts, counts = plan
+        return accel.level_probe(store, accel.ProbeKeys(ks, kraw),
+                                 [files[fi] for fi in fis], rows, starts,
+                                 counts)
 
     def plan_host(ranks, pos):
         bounds = np.nonzero(np.diff(ranks))[0] + 1
@@ -1322,8 +1544,9 @@ def crossover_phase(store, sizes=CROSSOVER_SIZES, iters=40) -> dict:
         return call
 
     def cases(b):
-        ks, vks, lks = draw(tab.keys, b), draw(vtab.keys, b), draw(lkeys, b)
-        kraw = hash_family(ks, k)
+        vks, lks, fks = draw(vtab.keys, b), draw(lkeys, b), draw(fkeys, b)
+        kraw, plan = hash_family(lks, k), level_plan(lvl, lks)
+        fraw, fplan = hash_family(fks, k), level_plan(few, fks)
         # one multi_get's fetches: ~10 keys per vSST, grouped by file
         ranks = np.sort(rng.integers(0, max(1, b // 10), b)).astype(np.int64)
         pos = rng.integers(0, 4 * b, b).astype(np.int64)
@@ -1331,8 +1554,11 @@ def crossover_phase(store, sizes=CROSSOVER_SIZES, iters=40) -> dict:
         # lifetime observe routes one row per distinct group seen before
         groups = rng.permutation(acfg.adaptive_groups)[:b]
         return {  # op: (host path, routed path)
-            "lookup_probe": (lambda: lookup_host(ks, kraw),
-                             lambda: accel.table_probe(store, tab, ks, kraw)),
+            "lookup_probe_level": (lambda: level_host(lks, kraw, plan),
+                                   lambda: level_routed(lks, kraw, plan)),
+            "lookup_probe_level_fewest": (
+                lambda: level_host(fks, fraw, fplan),
+                lambda: level_routed(fks, fraw, fplan)),
             "rank_probe": (lambda: vtab.find(vks),
                            lambda: accel.table_find(store, vtab, vks)),
             "count_le": (lambda: v.assign_files(lvl, lks),
@@ -1370,7 +1596,93 @@ def crossover_phase(store, sizes=CROSSOVER_SIZES, iters=40) -> dict:
                 break
             cross = r["batch"]
         out[name] = {"rows": rs, "crossover": cross}
+        if name.startswith("lookup_probe_level"):
+            out[name]["files"] = len(v.levels[lvl if name ==
+                                              "lookup_probe_level" else few])
         log(f"[crossover] {name}: " + json.dumps(out[name]))
+    out["few_files"] = few_files_crossover(store.device, iters)
+    return out
+
+
+# (files, rows) of the level probes whose route the level's row count
+# decides: a level of a few files, each under kernel_min_batch rows, and
+# an L0 of one to four tables
+FEW_FILES = (1, 2, 3, 4, 8, 16)
+FEW_ROWS = (64, 128, 256, 512, 1024)
+
+
+def few_files_crossover(device, iters=40) -> dict:
+    """Wall time per call (us) of one level probe against the host loop
+    over its files (bloom test and ``SSTable.find`` a file), on seeded
+    levels of ``FEW_FILES`` 12,000-key files (the 1 GiB store's table
+    size) at ``FEW_ROWS`` rows: an L1+ level's rows spread over its files
+    (half present keys), and L0 tables that each probe every row (the
+    host walk's work when no table resolves a row).  The routed call
+    uploads the key and raw-hash columns, as a lookup's first routed
+    level does.  -> {"level": [...], "l0": [...]}, a row per shape."""
+    import types
+    import numpy as np
+    from repro_torch.core import accel
+    from repro_torch.core.engine.keys import BloomFilter, hash_family
+    from repro_torch.core.engine.tables import SSTable
+    rng = np.random.default_rng(23)
+    store = _stub_store(str(device))
+    per = 12000
+    out = {"level": [], "l0": []}
+    for kind in out:
+        for nfiles in FEW_FILES if kind == "level" else FEW_FILES[:4]:
+            if kind == "level":     # one sorted key set cut into files
+                allk = np.unique(rng.integers(0, 1 << 40, nfiles * per + 99,
+                                              dtype=np.uint64))
+                runs = np.split(allk[:nfiles * per], nfiles)
+            else:                   # tables over one key range
+                runs = [np.unique(rng.integers(0, 1 << 40, per,
+                                               dtype=np.uint64))
+                        for _ in range(nfiles)]
+            tables = [types.SimpleNamespace(keys=r, n=len(r),
+                                            bloom=BloomFilter(r, 10))
+                      for r in runs]
+            pool = np.concatenate(runs)
+            for nrows in FEW_ROWS:
+                ks = pool[rng.integers(0, len(pool), nrows)]
+                ks[nrows // 2:] = rng.integers(0, 1 << 40, nrows - nrows // 2,
+                                               dtype=np.uint64)
+                kraw = hash_family(ks, tables[0].bloom.k)
+                if kind == "level":
+                    lo = np.array([r[0] for r in runs])
+                    fidx = np.searchsorted(lo, ks, side="right") - 1
+                    fidx[ks > runs[-1][-1]] = -1
+                    rows = np.nonzero(fidx >= 0)[0]
+                    rows = rows[np.argsort(fidx[rows], kind="stable")]
+                    fis, starts, counts = np.unique(
+                        fidx[rows], return_index=True, return_counts=True)
+                else:
+                    rows = np.arange(nrows)
+                    fis = np.arange(nfiles)
+                    starts = np.zeros(nfiles, np.int64)
+                    counts = np.full(nfiles, nrows, np.int64)
+                segs = list(zip(fis.tolist(), starts.tolist(),
+                                counts.tolist()))
+
+                def host():
+                    for fi, a, c in segs:
+                        r = rows[a:a + c]
+                        t = tables[fi]
+                        may = t.bloom.may_contain(ks[r], raw=kraw[:, r])
+                        SSTable.find(t, ks[r][may])
+
+                def routed():
+                    return accel.level_probe(
+                        store, accel.ProbeKeys(ks, kraw),
+                        [tables[fi] for fi in fis], rows, starts, counts)
+                require(routed() is not None,
+                        "crossover: the level probe declined")
+                out[kind].append({
+                    "files": nfiles, "rows": nrows,
+                    "max_file_rows": int(counts.max()),
+                    "host_us": _per_call_us(host, iters),
+                    "routed_us": _per_call_us(routed, iters)})
+    log("[crossover] few_files: " + json.dumps(out))
     return out
 
 
@@ -1405,7 +1717,9 @@ def kernel_times_only(src: Path) -> None:
     launch in three profiler sessions of 200 launches each and by
     ``queued_ms``; for ``run_coalesce`` also the wrapper call
     (``call_ms``) and ``torch.sort`` of the packed pairs beside it, after
-    holding the kernel against its plain version."""
+    holding the kernel against its plain version.  Then a level's table
+    probes (``_level_times``) and the routed sketch estimate
+    (``_estimate_times``), as the store makes them on that tree."""
     import numpy as np
     import torch
     sys.path.insert(0, str(src.resolve()))
@@ -1447,11 +1761,169 @@ def kernel_times_only(src: Path) -> None:
             "sort_ms": [device_ms(lambda: torch.sort(packed), iters=200,
                                   label=f"torch.sort {m}")
                         for _ in range(3)]}
+    out["level_probe"] = _level_times(kernels)
+    out["estimate"] = _estimate_times(kernels)
     print(json.dumps({"kernel_times": out}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+# (name, files, keys a file, rows, rows shared by every file as in L0):
+# the main path's level probes, an L1+ level of a multi_get batch and the
+# L0 tables of a GC-Lookup batch
+LEVEL_SHAPES = (("level_80x12000_q4096", 80, 12000, 4096, False),
+                ("level_80x12000_q512", 80, 12000, 512, False),
+                ("l0_4x12000_q9757", 4, 12000, 9757, True))
+TILE_CHOICES = (256, 512, 1024)
+STRIDE_CHOICES = (16, 32, 64)
+
+
+def _stub_store(device="cuda"):
+    """What ``core/accel.py`` reads of a store: its config (every probe
+    routed), device, device cache and observer."""
+    import types
+    import torch
+    from repro_torch.core import EngineConfig, accel
+    from repro_torch.kernels.common import DeviceCache
+    from repro_torch.obs import NULL_OBSERVER
+    cfg = EngineConfig.scaled("scavenger", 1 << 30, est_keys=1 << 20)
+    cfg._kernel_policy = accel.KernelPolicy(True, 1, cfg.coalesce_window)
+    dev = torch.device(device)
+    return types.SimpleNamespace(cfg=cfg, device=dev, obs=NULL_OBSERVER,
+                                 dev_cache=DeviceCache(dev))
+
+
+def _wall_ms(fn, iters: int = 50) -> float:
+    """Mean wall ms per call of ``fn`` (each call waits for the card)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _level_times(kernels, device="cuda") -> dict:
+    """The table probes of one level as the store makes them: one level
+    probe (``accel.level_probe``, this tree) or one ``accel.table_probe``
+    a table (trees before it), on the same seeded level: the device time
+    of all the call's kernels and the call's wall time (upload, kernels,
+    download).  On a tree with the level form, also its tile and fence
+    stride choices, in two passes (forward, then reverse) for a spread."""
+    import types
+    import numpy as np
+    from repro_torch.core import accel
+    from repro_torch.core.engine.keys import BloomFilter, hash_family
+    level_form = hasattr(accel, "level_probe")
+    rng = np.random.default_rng(19)
+    res = {}
+    for name, nfiles, per, nrows, shared in LEVEL_SHAPES:
+        store = _stub_store(device)
+        if shared:      # L0: tables over one key range, rows shared
+            runs = [np.unique(rng.integers(0, 1 << 40, per, dtype=np.uint64))
+                    for _ in range(nfiles)]
+        else:           # a level: one sorted key set cut into files
+            allk = np.unique(rng.integers(0, 1 << 40, nfiles * per + 999,
+                                          dtype=np.uint64))[:nfiles * per]
+            runs = np.split(allk, nfiles)
+        tables = [types.SimpleNamespace(keys=r, bloom=BloomFilter(r, 10))
+                  for r in runs]
+        pool = np.concatenate(runs)
+        keys = np.concatenate([pool[rng.integers(0, len(pool), nrows // 2)],
+                               rng.integers(0, 1 << 40, nrows - nrows // 2,
+                                            dtype=np.uint64)])
+        kraw = hash_family(keys, tables[0].bloom.k)
+        if shared:
+            rows = np.arange(nrows)
+            segs = [(i, 0, nrows) for i in range(nfiles)]
+        else:
+            mins = np.array([r[0] for r in runs])
+            fidx = np.searchsorted(mins, keys, side="right") - 1
+            fidx[keys > runs[-1][-1]] = -1
+            rows = np.nonzero(fidx >= 0)[0]
+            rows = rows[np.argsort(fidx[rows], kind="stable")]
+            fis, starts, counts = np.unique(fidx[rows], return_index=True,
+                                            return_counts=True)
+            segs = list(zip(fis.tolist(), starts.tolist(), counts.tolist()))
+        segs = [(tables[i], a, c) for i, a, c in segs]
+        starts = np.array([a for _, a, _ in segs], np.int64)
+        counts = np.array([c for _, _, c in segs], np.int64)
+
+        def per_table():
+            return [accel.table_probe(store, t, keys[rows[a:a + c]],
+                                      kraw[:, rows[a:a + c]])
+                    for t, a, c in segs]
+
+        def level():
+            return accel.level_probe(store, accel.ProbeKeys(keys, kraw),
+                                     [t for t, _, _ in segs], rows, starts,
+                                     counts)
+        call = level if level_form else per_table
+        got = call()
+        may = got[0] if level_form else np.concatenate([g[0] for g in got])
+        pos = got[1] if level_form else np.concatenate([g[1] for g in got])
+        want_may = np.concatenate([t.bloom.may_contain(
+            keys[rows[a:a + c]], raw=kraw[:, rows[a:a + c]])
+            for t, a, c in segs])
+        want_pos = np.concatenate([np.where(
+            np.isin(keys[rows[a:a + c]], t.keys), np.searchsorted(
+                t.keys, keys[rows[a:a + c]]), -1) for t, a, c in segs])
+        require((may == want_may).all() and (pos == want_pos).all(),
+                f"{name}: the probe disagrees with the host path")
+        rec = {"form": "level" if level_form else "per_table",
+               "segments": len(segs), "slots": int(counts.sum()),
+               "launches_per_call": 1 if level_form else len(segs),
+               "device_ms": [device_ms(call, iters=20, only=CUDA_KERNELS,
+                                       label=name) for _ in range(3)],
+               "call_ms": [_wall_ms(call) for _ in range(3)]}
+        if level_form:
+            dk, dr = store.dev_cache.get, accel.ProbeKeys(keys, kraw)
+            kt, kr = dr.on(store.device)
+            args = (kt, kr, rows, starts, counts,
+                    [dk(t.keys) for t, _, _ in segs],
+                    [dk(t.bloom.bits) for t, _, _ in segs],
+                    [t.bloom.nbits for t, _, _ in segs])
+            choices = [(t, st) for t in TILE_CHOICES for st in STRIDE_CHOICES]
+            times = {f"tile{t}_stride{st}": [] for t, st in choices}
+            for order in (choices, choices[::-1]):
+                for t, st in order:
+                    times[f"tile{t}_stride{st}"].append(device_ms(
+                        lambda t=t, st=st: kernels.lookup_probe_segments(
+                            *args, _tile=t, _stride=st),
+                        iters=100, only=CUDA_KERNELS,
+                        label=f"{name} tile {t} stride {st}"))
+            rec["choices_ms"] = times
+        log(f"[kernel-times] {name}: {json.dumps(rec)}")
+        res[name] = rec
+    return res
+
+
+def _estimate_times(kernels, device="cuda") -> dict:
+    """``DecaySketch.estimate`` routed, at the adaptive run's largest call
+    (a 2 x 4,096 sketch, 5,433 keys): the row hash in the kernel (this
+    tree) or the host's ``_rows`` and the index-form kernel (trees before
+    it); device time and the call's wall time."""
+    import numpy as np
+    from repro_torch.core import accel
+    from repro_torch.core.adaptive.sketch import DecaySketch
+    rng = np.random.default_rng(21)
+    sk = DecaySketch(4096, 2, 5000.0, policy=accel.KernelPolicy(True, 1),
+                     device=device)
+    sk.counts[:] = rng.random(sk.counts.shape) * 1e3
+    keys = rng.integers(0, 1 << 40, 5433, dtype=np.uint64)
+    want = sk.counts[np.arange(2)[:, None], sk._rows(keys)].min(0)
+    require((sk.estimate(keys) == want).all(),
+            "estimate disagrees with the host path")
+
+    def call():
+        return sk.estimate(keys)
+    rec = {"form": "key" if hasattr(kernels, "sketch_estimate") else "index",
+           "device_ms": [device_ms(call, iters=20, only=CUDA_KERNELS,
+                                   label="estimate") for _ in range(3)],
+           "call_ms": [_wall_ms(call, iters=200) for _ in range(3)]}
+    log(f"[kernel-times] estimate: {json.dumps(rec)}")
+    return rec
 
 
 def card_line() -> str:
@@ -1468,8 +1940,9 @@ def main(argv) -> int:
                     help="run only phase 4, on a 2^18-key store")
     ap.add_argument("--kernel-times", action="store_true",
                     help="only build the library and time segment_sum and "
-                         "gather_min64 at the adaptive run's shapes and "
-                         "run_coalesce at M from 64 to 8,192")
+                         "gather_min64 at the adaptive run's shapes, "
+                         "run_coalesce at M from 64 to 8,192, a level's "
+                         "table probes and the sketch estimate")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="directory holding the repro_torch package")
     args = ap.parse_args(argv)
@@ -1508,10 +1981,14 @@ def main(argv) -> int:
     # each kernel's count from the run that carries it
     launches = {name: (main if name in MAIN_KERNELS else adaptive)
                 ["launches"][name] for name in ADAPTIVE_KERNELS}
-    recs = shapes_phase(cap, launches) + bench_recs
+    recs, forms = shapes_phase(cap, launches)
+    recs += bench_recs
+    log("[shapes] level probes of the two store runs: "
+        + json.dumps(cap.levels))
     parity_phase()
     crash_phase()
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"earlier_forms": forms}))
     print(json.dumps({"kernels": recs}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

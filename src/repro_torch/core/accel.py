@@ -13,7 +13,10 @@ bytes.  Keys reach the kernels as int64 tensors holding the u64 bit
 patterns, and the kernels take the full 64-bit range.  Immutable columns
 (sorted key runs, bloom words, level bounds, memtable snapshots) go to the
 device once, through the store's ``DeviceCache``; per call, the query
-columns go up and the results come back, with one wait for the card.  On
+columns go up and the results come back, with one wait for the card.  A
+lookup's table probes run one launch a level (``level_probe``: every L0
+table at once, then every file of each deeper level at once), over a key
+column and hash column that go up once a lookup (``ProbeKeys``).  On
 a CUDA device the ops launch the CUDA kernels; on the CPU they run their
 plain torch versions.
 
@@ -112,21 +115,45 @@ def memtable_probe(store, mt, keys):
     return (found, seqs[safe], ety[safe], vids[safe], vsz[safe], vf[safe])
 
 
-def table_probe(store, t, keys, kraw):
-    """Fused bloom + ``SSTable.find`` for one table; None -> host path.
+class ProbeKeys:
+    """One ``lookup_entries`` call's key column and raw ``hash_family``
+    column (k, n).  Both go to the device together, once a call, on the
+    first level probe that routes (not once a table)."""
 
-    ``kraw`` is the hoisted (k, Q) u64 ``hash_family`` column slice; the
-    u64 modulo to the table's filter size runs on the host and the
-    resulting bit indices feed the fused probe."""
+    __slots__ = ("keys", "kraw", "_dev")
+
+    def __init__(self, keys: np.ndarray, kraw: np.ndarray):
+        self.keys = np.asarray(keys, np.uint64)
+        self.kraw = kraw
+        self._dev = None
+
+    def on(self, device) -> tuple:
+        """-> (keys (n,), kraw (k, n)) int64 tensors on ``device``."""
+        if self._dev is None:
+            both = to_device(np.concatenate([self.keys[None, :], self.kraw]),
+                             device)                       # (k + 1, n)
+            self._dev = (both[0], both[1:])
+        return self._dev
+
+
+def level_probe(store, batch: ProbeKeys, tables, rows, seg_start, seg_count):
+    """Fused bloom + ``SSTable.find`` for many tables in one launch:
+    segment s probes the keys ``rows[seg_start[s]:seg_start[s] +
+    seg_count[s]]`` of ``batch`` against ``tables[s]`` (segments may share
+    rows: every L0 table takes the same rows).  The level's row count,
+    ``len(rows)``, decides routing; None -> host path.  -> (may, pos) over
+    the segments' slots, segment after segment, pos the rank where found
+    and -1 elsewhere."""
     pol = policy_of(store.cfg)
-    if not pol.ready(len(keys)):
+    if not pol.ready(len(rows)):
         return None
     t0 = time.perf_counter()
-    bf = t.bloom
-    bit_idx = (kraw % np.uint64(bf.nbits)).T                  # (Q, k)
-    may, found, rank = to_host(*kernels.lookup_probe(
-        to_device(keys, store.device), store.dev_cache.get(t.keys),
-        to_device(bit_idx, store.device), store.dev_cache.get(bf.bits)))
+    keys, kraw = batch.on(store.device)
+    get = store.dev_cache.get
+    may, found, rank = to_host(*kernels.lookup_probe_segments(
+        keys, kraw, rows, seg_start, seg_count,
+        [get(t.keys) for t in tables], [get(t.bloom.bits) for t in tables],
+        [t.bloom.nbits for t in tables]))
     _emit(store, "lookup_probe", t0)
     return may, np.where(found, rank, -1)
 

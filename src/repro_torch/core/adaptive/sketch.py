@@ -15,13 +15,15 @@ batches in O(depth * width) memory.  Two properties matter to callers:
 Updates are vectorized (one ``np.bincount`` per row, ``depth`` is a small
 constant): a whole key column crosses in one call, zero per-key loops.
 Eligible batches route the row updates through the ``segment_sum`` kernel
-and the count-min gather through ``gather_min64`` on the sketch's device:
+and the count-min estimate through ``gather_min64``'s key form
+(``sketch_estimate``: the row hash in the kernel) on the sketch's device:
 both are bit-identical to the host path — unit-count adds accumulate as
 one integer-valued float add per slot either way, and the estimate's min
 compares the counters' 64-bit patterns as unsigned integers, exact for
 the sketch's non-negative float64 counters.  The counters change in
 place, so each routed estimate uploads them anew (at most a few hundred
-KB); they are never held in a ``DeviceCache``.
+KB), with the keys and the row seeds in the same copy; they are never held
+in a ``DeviceCache``.
 """
 
 from __future__ import annotations
@@ -113,15 +115,22 @@ class DecaySketch:
         """Decayed event-count estimate per key (count-min: min over rows)."""
         if len(keys) == 0:
             return np.zeros(0, np.float64)
-        idx = self._rows(keys)
         pol = self.policy
         if pol is not None and pol.ready(len(keys)):
-            # (depth, width) f64 -> their 64-bit patterns; the u64 min of
-            # the patterns == the numeric min for non-negative doubles
-            (est,) = to_host(kernels.gather_min64(
-                to_device(self.counts.view(np.int64), self.device),
-                to_device(idx.T, self.device)))
+            # the row hash runs in the kernel: the (depth, width) f64
+            # counters' 64-bit patterns, the row seeds and the keys go up
+            # in one copy; the u64 min of the patterns == the numeric min
+            # for non-negative doubles
+            nc = self.depth * self.width
+            col = to_device(np.concatenate([
+                self.counts.view(np.int64).ravel(),
+                self._seeds.view(np.int64),
+                np.asarray(keys, np.uint64).view(np.int64)]), self.device)
+            (est,) = to_host(kernels.sketch_estimate(
+                col[:nc].view(self.depth, self.width),
+                col[nc + self.depth:], col[nc:nc + self.depth]))
             return est.view(np.float64)
+        idx = self._rows(keys)
         est = self.counts[0][idx[0]]
         for r in range(1, self.depth):
             est = np.minimum(est, self.counts[r][idx[r]])

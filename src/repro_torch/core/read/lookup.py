@@ -7,9 +7,11 @@ one bloom/``find`` pass per touched SSTable, block-cache I/O accounting per
 unique (stream, block) — no per-key Python anywhere on the path.
 
 Eligible batches route through the fused ``lookup_probe`` kernel
-(``core/accel.py``): the bloom bit test, the sorted-run
-membership/rank, and the per-level file assignment run as one kernel launch
-per probed structure, byte-identical to the host path below.
+(``core/accel.py``): the bloom bit test and the sorted-run membership/rank
+run as one kernel launch for all L0 tables and one for each deeper level's
+files (``accel.level_probe``; the level's row count decides routing), the
+per-level file assignment as one more, byte-identical to the host path
+below.
 """
 
 from __future__ import annotations
@@ -95,11 +97,16 @@ def lookup_entries(store, keys: np.ndarray, cat: str) -> dict:
     # raw bloom hashes depend only on the key column: hash once, reuse
     # against every probed table's filter
     kraw = hash_family(keys, BloomFilter.k_for(store.cfg.filter_bits_per_key))
+    batch = accel.ProbeKeys(keys, kraw)
 
-    def probe_file(t: SSTable, rows: np.ndarray):
-        fused = accel.table_probe(store, t, keys[rows], kraw[:, rows])
-        may = (t.bloom.may_contain(keys[rows], raw=kraw[:, rows])
-               if fused is None else fused[0])
+    def probe_file(t: SSTable, rows: np.ndarray, fused):
+        """``fused``: the routed level probe's (may, pos) of these rows in
+        ``t``, or None for the host path."""
+        if fused is None:
+            lookup_entries.host_table_probes += 1
+            may = t.bloom.may_contain(keys[rows], raw=kraw[:, rows])
+        else:
+            may = fused[0]
         if not may.any():
             return
         rows = rows[may]
@@ -117,10 +124,27 @@ def lookup_entries(store, keys: np.ndarray, cat: str) -> dict:
             out["vfile"][hrows] = t.vfiles[hpos]
             unresolved[hrows] = False
 
-    for t in reversed(store.version.levels[0]):
-        if not unresolved.any():
-            break
-        probe_file(t, np.nonzero(unresolved)[0])
+    # ---- L0, newest first: one level probe of every row still unresolved
+    # against every table; a table's answer for a row does not depend on
+    # the other tables, so the walk below reads the rows it reaches
+    l0 = list(reversed(store.version.levels[0]))
+    if l0 and unresolved.any():
+        rows = np.nonzero(unresolved)[0]
+        n = len(rows)
+        fused = accel.level_probe(store, batch, l0, rows,
+                                  np.zeros(len(l0), np.int64),
+                                  np.full(len(l0), n, np.int64))
+        for i, t in enumerate(l0):
+            if not unresolved.any():
+                break
+            if fused is None:
+                probe_file(t, np.nonzero(unresolved)[0], None)
+                continue
+            live = np.nonzero(unresolved[rows])[0]
+            probe_file(t, rows[live], (fused[0][i * n + live],
+                                       fused[1][i * n + live]))
+    # ---- L1..Ln: the rows grouped by file (stable, ascending file index)
+    # and probed in one level probe
     for lvl in range(1, store.cfg.max_levels):
         if not unresolved.any():
             break
@@ -131,6 +155,19 @@ def lookup_entries(store, keys: np.ndarray, cat: str) -> dict:
         fidx = accel.assign_files(store, lvl, keys[rows])
         if fidx is None:
             fidx = store.version.assign_files(lvl, keys[rows])
-        for fi in np.unique(fidx[fidx >= 0]):
-            probe_file(files[fi], rows[fidx == fi])
+        inside = fidx >= 0
+        order = np.argsort(fidx[inside], kind="stable")
+        rows, fidx = rows[inside][order], fidx[inside][order]
+        fis, starts, counts = np.unique(fidx, return_index=True,
+                                        return_counts=True)
+        fused = accel.level_probe(store, batch, [files[fi] for fi in fis],
+                                  rows, starts, counts)
+        for fi, a, c in zip(fis.tolist(), starts.tolist(), counts.tolist()):
+            seg = slice(a, a + c)
+            probe_file(files[fi], rows[seg], None if fused is None
+                       else (fused[0][seg], fused[1][seg]))
     return out
+
+
+# table probes that took the host path (the routed level probes aside)
+lookup_entries.host_table_probes = 0

@@ -52,6 +52,43 @@ def u64_order(t: torch.Tensor) -> torch.Tensor:
     return t ^ SIGN_BIT
 
 
+def _lsr(t: torch.Tensor, s: int) -> torch.Tensor:
+    # logical right shift of u64 patterns (torch's >> on int64 is
+    # arithmetic: mask off the copies of the sign bit)
+    return (t >> s) & ((1 << (64 - s)) - 1)
+
+
+def _i64(c: int) -> int:
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+_GAMMA = _i64(0x9E3779B97F4A7C15)
+_MIX1 = _i64(0xBF58476D1CE4E5B9)
+_MIX2 = _i64(0x94D049BB133111EB)
+
+
+def splitmix64(t: torch.Tensor) -> torch.Tensor:
+    """``core/engine/keys.py``'s splitmix64 finalizer on int64 tensors of
+    u64 patterns: int64 adds and products wrap as u64 ones do."""
+    z = t + _GAMMA
+    z = (z ^ _lsr(z, 30)) * _MIX1
+    z = (z ^ _lsr(z, 27)) * _MIX2
+    return z ^ _lsr(z, 31)
+
+
+def u64_mod(t: torch.Tensor, m: int) -> torch.Tensor:
+    """u64 patterns modulo ``m`` (1 <= m < 2^62) as unsigned integers.
+
+    torch has no unsigned modulo: a pattern with the top bit set is
+    2^63 + (its low 63 bits), so its remainder is that of the low bits
+    plus 2^63 % m, reduced once more."""
+    m = int(m)
+    if not 1 <= m < 1 << 62:
+        raise ValueError(f"u64_mod: modulus {m} outside [1, 2^62)")
+    low = (t & ((1 << 63) - 1)) % m
+    return torch.where(t < 0, (low + (1 << 63) % m) % m, low)
+
+
 def u32_values(t: torch.Tensor) -> torch.Tensor:
     """int32 tensor of u32 bit patterns -> int64 tensor of the u32 values."""
     return t.to(torch.int64) & U32_MAX
@@ -115,11 +152,15 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
     # name: argument types; every function returns its cudaError_t
     "rank_probe": (_P, _I64, _P, _I64, _P, _P, _P),
-    "lookup_probe": (_P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _P, _P),
+    "lookup_probe": (_P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _P, _I64,
+                     _P),
+    "lookup_probe_level": (_P, _I64, _P, _I64, _P, _I64, _I64, _I64, _I64,
+                           _P, _P, _P, _P),
     "count_le": (_P, _I64, _P, _I64, _P, _I64, _P, _P),
     "run_coalesce": (_P, _P, _I64, _I64, _P, _I64, _P, _P, _P, _P, _P),
     "segment_sum": (_P, _I64, _I64, _P, _P),
     "gather_min64": (_P, _I64, _I64, _P, _I64, _P, _P),
+    "sketch_estimate": (_P, _I64, _I64, _I64, _I64, _P, _P, _I64, _P, _P),
     "gc_lookup": (_P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P),
     "bloom_probe": (_P, _I64, _P, _I64, _I64, _P, _P),
     "merge_dedup": (_P, _P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P),
@@ -138,7 +179,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.scav_error_string.argtypes = [ctypes.c_int]
     lib.scav_error_string.restype = ctypes.c_char_p
-    for name in ("scav_smem_sort_cap", "scav_partition_tile"):
+    for name in ("scav_smem_sort_cap", "scav_partition_tile",
+                 "scav_probe_tile_words"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int64
     lib.scav_stream_sync.argtypes = [_P]
@@ -158,6 +200,28 @@ def partition_tile() -> int:
     """Records per tile of the partition passes (the library's constant);
     ``hot_cold_partition`` needs one int64 of scratch per tile."""
     return int(library().scav_partition_tile())
+
+
+@functools.lru_cache(maxsize=None)
+def probe_tile_words() -> int:
+    """int64 words of one tile of ``lookup_probe``'s level plan (the
+    library's own constant; the wrapper lays tiles out to match)."""
+    return int(library().scav_probe_tile_words())
+
+
+@functools.lru_cache(maxsize=4096)
+def fast_mod_magic(d: int) -> tuple:
+    """The kernels' modulo by a divisor ``d`` (1 <= d < 2^64) fixed per
+    call, as a multiply: (m as an int64 bit pattern, l) with l =
+    ceil(log2 d) and m = floor(2^(64+l) / d) - 2^64 + 1 (Granlund and
+    Montgomery's unsigned division by an invariant integer); cached, as a
+    store's filters share a few sizes."""
+    d = int(d)
+    if not 1 <= d < 1 << 64:
+        raise ValueError(f"fast_mod_magic: divisor {d} outside [1, 2^64)")
+    ln = (d - 1).bit_length()
+    m = (1 << (64 + ln)) // d - (1 << 64) + 1
+    return (m - (1 << 64) if m >= 1 << 63 else m), ln
 
 
 def launch(name: str, device: torch.device, *args) -> None:

@@ -100,30 +100,136 @@ __global__ void rank_probe_kernel(const u64* __restrict__ q, i64 nq,
 // (w[b >> 6] >> (b & 63)) & 1, the same bit the reference reads through a
 // little-endian u32 view), plus rank_probe's found and rank.
 //
-// Bound: latency, as rank_probe, plus k independent word gathers per
-// query that issue together ahead of the search.  Design: the bloom test
-// and the search share one thread, so a query's filter words and run
-// entries are fetched in one pass with no intermediate in memory.
-__global__ void lookup_probe_kernel(const u64* __restrict__ q, i64 nq,
-                                    const u64* __restrict__ run, i64 n,
-                                    const u64* __restrict__ bit_idx, i64 k,
-                                    const u64* __restrict__ words,
-                                    bool* __restrict__ may,
-                                    bool* __restrict__ found,
-                                    i64* __restrict__ rank) {
-  i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nq) return;
-  const u64* bits = bit_idx + i * k;
-  bool all = true;
-  for (i64 j = 0; j < k; ++j) {
-    u64 b = bits[j];
-    all &= ((words[b >> 6] >> (b & 63)) & 1ull) != 0;
+// Two forms, one template.  The level form (kLevel) probes many sorted runs
+// in one launch: the store's lookup probes every L0 table, or every file
+// of one deeper level, at once.  Each CTA takes one tile of one segment
+// (ProbeTile: its file's run and filter, the first row and output slot,
+// the count), reads its keys through a row index into the call's key
+// column, and computes its bit indices on the card as kraw[j, row] % nbits
+// (u64) from the raw hash column that goes up once per lookup.  The table
+// form (the (queries, run, bit_idx, words) contract) is one file passed by
+// value, tiles implied by blockIdx, bit indices given.
+//
+// Bound: latency.  A query's work is a chain of dependent loads; its bytes
+// are a few sectors, so the bytes bound is far below one chain of L2 hits.
+// The first port ran ~log2(N) ~ 14 dependent global loads a query and one
+// launch a table.  Design: each CTA stages its file's fence keys (every
+// 2^shift-th key, at most kMaxFences: ~3 KB at stride 32 for a 12k-key
+// run) in shared memory; a thread searches the fences there, then only
+// the window between two fences in global memory (shift + 1 loads).  The
+// k filter-word gathers issue before the barrier, so they overlap the
+// staging and the search.  A tile carries its file's descriptor, so a CTA
+// reads its work in one round trip; the modulo by nbits is a multiply by
+// the file's magic (FastMod), not a 64-bit division on the chain.  rank =
+// #{run < q}: with f = #{fences < q}, rank is 0 when f = 0, else in
+// ((f-1)*stride, f*stride].
+
+// x % d for a divisor fixed per call: Granlund and Montgomery's unsigned
+// division by an invariant integer (PLDI 1994, fig. 4.1), l = ceil(log2 d),
+// m = floor(2^(64+l) / d) - 2^64 + 1 (the host computes both).
+struct FastMod {
+  u64 d;
+  u64 m;
+  i64 l;
+};
+
+__device__ __forceinline__ u64 fast_mod(u64 x, const FastMod& f) {
+  const u64 t = __umul64hi(x, f.m);
+  const u64 q = (t + ((x - t) >> (f.l > 0 ? 1 : 0))) >> (f.l > 1 ? f.l - 1 : 0);
+  return x - q * f.d;
+}
+
+struct ProbeTile {     // one CTA's queries: rows[row .. row + count) into
+  const u64* run;      // output slots [out .. out + count) against the run
+  i64 n;               // and filter of one file (the filter's nbits and its
+  const u64* words;    // FastMod magic in bits)
+  FastMod bits;
+  i64 row;
+  i64 out;
+  i64 count;
+};
+constexpr int kTileWords = 9;
+static_assert(sizeof(ProbeTile) == kTileWords * sizeof(i64),
+              "plan tiles of kTileWords i64");
+
+constexpr int kMaxFences = 2048;   // 16 KB of fence keys a CTA
+constexpr int kPrefetchK = 8;      // filter words gathered before the search
+
+template <bool kLevel>
+__device__ __forceinline__ u64 probe_bit(const u64* __restrict__ hashes,
+                                         i64 nkeys, i64 k, i64 row,
+                                         i64 slot, i64 j, const FastMod& m) {
+  return kLevel ? fast_mod(hashes[j * nkeys + row], m)
+                : hashes[slot * k + j];
+}
+
+template <bool kLevel>
+__global__ void __launch_bounds__(1024)
+lookup_probe_kernel(const u64* __restrict__ keys, i64 nkeys,
+                    const u64* __restrict__ hashes, i64 k,
+                    const i64* __restrict__ plan, i64 nrows, ProbeTile one,
+                    int shift, bool* __restrict__ may,
+                    bool* __restrict__ found, i64* __restrict__ rank) {
+  __shared__ u64 fences[kMaxFences];
+  ProbeTile t;
+  if (kLevel) {
+    t = reinterpret_cast<const ProbeTile*>(plan + nrows)[blockIdx.x];
+  } else {
+    t = one;
+    t.row = t.out = (i64)blockIdx.x * blockDim.x;
+    t.count = one.count - t.row < blockDim.x ? one.count - t.row
+                                             : (i64)blockDim.x;
   }
-  may[i] = all;
-  u64 key = q[i];
-  i64 r = lower_bound(run, n, key);
-  rank[i] = r;
-  found[i] = r < n && run[r] == key;
+  while (((t.n + (1ll << shift) - 1) >> shift) > kMaxFences) ++shift;
+  const i64 stride = 1ll << shift;
+  const i64 nf = (t.n + stride - 1) >> shift;
+  for (i64 i = threadIdx.x; i < nf; i += blockDim.x)
+    fences[i] = t.run[i << shift];
+
+  const bool active = threadIdx.x < t.count;
+  const i64 slot = t.out + threadIdx.x;
+  i64 row = slot;
+  u64 key = 0;
+  u64 w[kPrefetchK];
+  unsigned sh[kPrefetchK];
+  if (active) {
+    if (kLevel) row = plan[t.row + threadIdx.x];
+    key = keys[row];
+#pragma unroll
+    for (int j = 0; j < kPrefetchK; ++j) {
+      if (j < k) {
+        const u64 b = probe_bit<kLevel>(hashes, nkeys, k, row, slot, j,
+                                        t.bits);
+        w[j] = t.words[b >> 6];
+        sh[j] = (unsigned)(b & 63);
+      }
+    }
+  }
+  __syncthreads();
+  if (!active) return;
+
+  i64 lo = 0, hi = nf;            // lo = #{fences < key}
+  while (lo < hi) {
+    const i64 mid = (lo + hi) >> 1;
+    if (fences[mid] < key) lo = mid + 1; else hi = mid;
+  }
+  i64 r = 0;
+  if (lo > 0) {
+    const i64 a = ((lo - 1) << shift) + 1;
+    const i64 b = (lo << shift) < t.n ? (lo << shift) : t.n;
+    r = a + lower_bound(t.run + a, b - a, key);
+  }
+  bool all = true;
+#pragma unroll
+  for (int j = 0; j < kPrefetchK; ++j)
+    if (j < k) all &= ((w[j] >> sh[j]) & 1ull) != 0;
+  for (i64 j = kPrefetchK; j < k; ++j) {
+    const u64 b = probe_bit<kLevel>(hashes, nkeys, k, row, slot, j, t.bits);
+    all &= ((t.words[b >> 6] >> (b & 63)) & 1ull) != 0;
+  }
+  may[slot] = all;
+  rank[slot] = r;
+  found[slot] = r < t.n && t.run[r] == key;
 }
 
 // ---------------------------------------------------------------------------
@@ -527,28 +633,59 @@ __global__ void segment_sum_kernel(const i64* __restrict__ ids, i64 n,
 
 // ---------------------------------------------------------------------------
 // gather_min64: replaces gather_min64_pallas (segment_reduce/kernel.py:93).
-// out[q] = min over rows r of bits[r, idx[q, r]], the count-min estimate
+// out[q] = min over rows r of bits[r, col(q, r)], the count-min estimate
 // of the adaptive sketch.  The float64 counters arrive as their 64-bit
 // patterns and are compared as unsigned integers: that order is exactly
 // the reference's lexicographic (hi, lo) u32 compare, for every pattern
 // (for the sketch's non-negative doubles it is also the numeric order,
-// and unlike fmin it never picks between +0 and -0).  An index outside
-// [0, w) fetches the pattern 0.
+// and unlike fmin it never picks between +0 and -0).
 //
-// Bound: latency.  Q queries x D (<= 4) dependent-free gathers from a
-// D x W table of at most a few hundred KB, L2-resident.  Design: one thread
-// per query; the D gathers issue back to back and reduce in registers.
+// Two forms, one template.  The index form takes col = idx[q, r] (Q, D),
+// and an index outside [0, w) fetches the pattern 0.  The key form
+// (kKeys, the sketch's estimate) takes the key column and the D row seeds
+// and hashes in registers, col = splitmix64(key ^ seed[r]) % w (u64,
+// wrapping; core/engine/keys.py), so the host builds and uploads no
+// (Q, D) index matrix: 8 bytes a query go up instead of 8 * D.
+//
+// Bound: latency.  Q queries x D (<= 4) independent gathers from a D x W
+// table of at most a few hundred KB, L2-resident.  Design: one thread per
+// query; up to kMinRows columns are computed first (the key form's modulo
+// a multiply by w's FastMod magic, not a 64-bit division), then their
+// gathers issue together and reduce in registers.
+__device__ __forceinline__ u64 splitmix64(u64 x) {
+  u64 z = x + 0x9E3779B97F4A7C15ull;
+  z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ull;
+  z = (z ^ (z >> 27)) * 0x94D049BB133111EBull;
+  return z ^ (z >> 31);
+}
+
+constexpr int kMinRows = 4;   // rows whose gathers issue together
+
+template <bool kKeys>
 __global__ void gather_min64_kernel(const u64* __restrict__ bits, i64 d,
                                     i64 w, const i64* __restrict__ idx,
-                                    i64 nq, u64* __restrict__ out) {
+                                    const u64* __restrict__ keys,
+                                    const u64* __restrict__ seeds,
+                                    FastMod wm, i64 nq,
+                                    u64* __restrict__ out) {
   i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= nq) return;
-  const i64* row = idx + i * d;
+  const u64 key = kKeys ? keys[i] : 0ull;
   u64 best = ~0ull;
-  for (i64 r = 0; r < d; ++r) {
-    i64 j = row[r];
-    u64 v = (j >= 0 && j < w) ? bits[r * w + j] : 0ull;
-    best = v < best ? v : best;
+  for (i64 r0 = 0; r0 < d; r0 += kMinRows) {
+    u64 v[kMinRows];
+#pragma unroll
+    for (int c = 0; c < kMinRows; ++c) {     // columns, then the gathers
+      const i64 r = r0 + c;
+      if (r < d) {
+        const i64 j = kKeys ? (i64)fast_mod(splitmix64(key ^ seeds[r]), wm)
+                            : idx[i * d + r];
+        v[c] = (j >= 0 && j < w) ? bits[r * w + j] : 0ull;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kMinRows; ++c)
+      if (r0 + c < d) best = v[c] < best ? v[c] : best;
   }
   out[i] = best;
 }
@@ -798,15 +935,41 @@ int rank_probe(const void* q, i64 nq, const void* run, i64 n, void* found,
   return (int)cudaGetLastError();
 }
 
+// The table form: one sorted run, bit_idx nq x k given; shift: log2 of the
+// fence stride.
 int lookup_probe(const void* q, i64 nq, const void* run, i64 n,
                  const void* bit_idx, i64 k, const void* words, void* may,
-                 void* found, void* rank, void* stream) {
-  lookup_probe_kernel<<<blocks_for(nq, kProbeThreads), kProbeThreads, 0,
-                        (cudaStream_t)stream>>>(
-      (const u64*)q, nq, (const u64*)run, n, (const u64*)bit_idx, k,
-      (const u64*)words, (bool*)may, (bool*)found, (i64*)rank);
+                 void* found, void* rank, i64 shift, void* stream) {
+  ProbeTile one = {};
+  one.run = (const u64*)run;
+  one.n = n;
+  one.words = (const u64*)words;
+  one.count = nq;
+  lookup_probe_kernel<false><<<blocks_for(nq, kProbeThreads), kProbeThreads,
+                               0, (cudaStream_t)stream>>>(
+      (const u64*)q, nq, (const u64*)bit_idx, k, nullptr, 0, one,
+      (int)shift, (bool*)may, (bool*)found, (i64*)rank);
   return (int)cudaGetLastError();
 }
+
+// The level form.  plan: nrows row indices into keys, then ntiles
+// ProbeTiles (kTileWords i64 each), on the card; kraw: k x nkeys raw
+// hashes; tile: threads a CTA (>= every tile's count, <= 1024); shift:
+// log2 of the fence stride.
+int lookup_probe_level(const void* keys, i64 nkeys, const void* kraw, i64 k,
+                       const void* plan, i64 nrows, i64 ntiles, i64 tile,
+                       i64 shift, void* may, void* found, void* rank,
+                       void* stream) {
+  const ProbeTile none = {};
+  lookup_probe_kernel<true><<<(unsigned)ntiles, (unsigned)tile, 0,
+                              (cudaStream_t)stream>>>(
+      (const u64*)keys, nkeys, (const u64*)kraw, k, (const i64*)plan, nrows,
+      none, (int)shift, (bool*)may, (bool*)found, (i64*)rank);
+  return (int)cudaGetLastError();
+}
+
+// i64 words a plan tile takes (the wrapper's layout check)
+i64 scav_probe_tile_words() { return kTileWords; }
 
 // interval != 0: write interval_rank over the n files' [mins, maxs] (maxs
 // is read only then; an empty column may have a null pointer).
@@ -868,12 +1031,26 @@ int segment_sum(const void* ids, i64 n, i64 n_slots, void* out,
 // bits: d x w row-major 64-bit patterns (d >= 1); idx: nq x d.
 int gather_min64(const void* bits, i64 d, i64 w, const void* idx, i64 nq,
                  void* out, void* stream) {
-  gather_min64_kernel<<<blocks_for(nq, kProbeThreads), kProbeThreads, 0,
-                        (cudaStream_t)stream>>>(
-      (const u64*)bits, d, w, (const i64*)idx, nq, (u64*)out);
+  const FastMod none = {1, 1, 0};
+  gather_min64_kernel<false><<<blocks_for(nq, kProbeThreads), kProbeThreads,
+                               0, (cudaStream_t)stream>>>(
+      (const u64*)bits, d, w, (const i64*)idx, nullptr, nullptr, none, nq,
+      (u64*)out);
   return (int)cudaGetLastError();
 }
 
+// The key form: keys nq u64 patterns, seeds d, w >= 1 with its FastMod
+// magic (wm, wl).
+int sketch_estimate(const void* bits, i64 d, i64 w, i64 wm, i64 wl,
+                    const void* keys, const void* seeds, i64 nq, void* out,
+                    void* stream) {
+  const FastMod m = {(u64)w, (u64)wm, wl};
+  gather_min64_kernel<true><<<blocks_for(nq, kProbeThreads), kProbeThreads,
+                              0, (cudaStream_t)stream>>>(
+      (const u64*)bits, d, w, nullptr, (const u64*)keys, (const u64*)seeds,
+      m, nq, (u64*)out);
+  return (int)cudaGetLastError();
+}
 
 int gc_lookup(const void* q, i64 nq, const void* keys, const void* vids,
               const void* vfiles, i64 n, void* found, void* vid, void* vfile,

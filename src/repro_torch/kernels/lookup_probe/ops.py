@@ -12,11 +12,21 @@ bit indices); sorted runs are ascending in u64 order and may be empty.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..common import check_columns, launch, outputs
+from ..common import (check_columns, fast_mod_magic, launch, outputs,
+                      probe_tile_words, to_device)
 from .ref import (count_le_ref, interval_rank_ref, lookup_probe_ref,
-                  rank_probe_ref)
+                  lookup_probe_segments_ref, rank_probe_ref)
+
+# The probe's shape on the card: queries a CTA of the level form probes,
+# one thread each, and the stride of the fence keys a CTA of either form
+# stages in shared memory (a power of two; the kernel widens it for a run
+# of more than 2,048 fences).  Both are measured choices (PERF.md §6).
+TILE = 512
+FENCE_STRIDE = 32
+_SHIFT = FENCE_STRIDE.bit_length() - 1
 
 
 def rank_probe(queries: torch.Tensor, run: torch.Tensor):
@@ -54,12 +64,86 @@ def lookup_probe(queries: torch.Tensor, run: torch.Tensor,
     if q:
         launch("lookup_probe", dev, queries.data_ptr(), q, run.data_ptr(),
                run.shape[0], bit_idx.data_ptr(), k, words.data_ptr(),
-               may.data_ptr(), found.data_ptr(), rank.data_ptr())
+               may.data_ptr(), found.data_ptr(), rank.data_ptr(), _SHIFT)
         lookup_probe.launches += 1
     return may, found, rank
 
 
 lookup_probe.launches = 0
+
+
+def lookup_probe_segments(keys: torch.Tensor, kraw: torch.Tensor, rows,
+                          seg_start, seg_count, runs, words, nbits, *,
+                          _tile: int = TILE, _stride: int = FENCE_STRIDE):
+    """``lookup_probe`` of many query segments in one launch, each against
+    its own sorted run and filter (every L0 table, or every file of one
+    level, of a batched lookup).
+
+    ``keys`` (N,) and ``kraw`` (k, N) are the lookup's key column and raw
+    ``hash_family`` column (u64 patterns before the modulo) on the device;
+    ``rows``, ``seg_start`` and ``seg_count`` are host int64 arrays:
+    segment s probes the keys ``rows[seg_start[s]:seg_start[s] +
+    seg_count[s]]`` against the sorted run ``runs[s]`` and the filter of
+    ``nbits[s]`` bits in the u64 words ``words[s]``, its bit indices
+    ``kraw[:, row] % nbits[s]`` computed on the card.  Segments may share
+    rows.  -> (may, found, rank), each (sum(seg_count),), segment after
+    segment.  Launches count on ``lookup_probe``.  ``_tile`` and
+    ``_stride`` set the kernel's shape in place of ``TILE`` and
+    ``FENCE_STRIDE``, for the tests and the timing of the choices."""
+    dev = check_columns("lookup_probe_segments", keys, kraw, *runs, *words)
+    rows = np.asarray(rows, np.int64)
+    seg_start = np.asarray(seg_start, np.int64)
+    seg_count = np.asarray(seg_count, np.int64)
+    s = len(runs)
+    if kraw.dim() != 2 or kraw.shape[0] < 1 \
+            or kraw.shape[1] != keys.shape[0] \
+            or not len(words) == len(nbits) == len(seg_start) \
+            == len(seg_count) == s:
+        raise ValueError("lookup_probe_segments: want kraw (k >= 1, N), and "
+                         "one run, filter, start and count a segment")
+    if len(rows) and not 0 <= rows.min() <= rows.max() < keys.shape[0]:
+        raise ValueError("lookup_probe_segments: rows outside [0, N)")
+    if s and (seg_start.min() < 0 or seg_count.min() < 0
+              or (seg_start + seg_count).max() > len(rows)):
+        raise ValueError("lookup_probe_segments: a segment outside rows")
+    for w, nb in zip(words, nbits):
+        if not 0 < nb <= 64 * w.shape[0]:
+            raise ValueError(f"lookup_probe_segments: {nb} filter bits in "
+                             f"{w.shape[0]} words")
+    if dev.type == "cpu":
+        return lookup_probe_segments_ref(keys, kraw, rows, seg_start,
+                                         seg_count, runs, words, nbits)
+    if not 1 <= _tile <= 1024 or _stride < 1 or _stride & (_stride - 1):
+        raise ValueError(f"lookup_probe_segments: tile {_tile} outside "
+                         f"[1, 1024] or stride {_stride} not a power of two")
+    q = int(seg_count.sum())
+    may, found, rank = outputs(q, dev, torch.bool, torch.bool, torch.int64)
+    if q:
+        # the plan, one upload: the rows, then a row a tile holding its
+        # file's (run, n, words, nbits, nbits' modulo magic, its log2) and
+        # its (first row, first slot, count)
+        files = np.array([(r.data_ptr(), r.shape[0], w.data_ptr(), nb,
+                           *fast_mod_magic(nb))
+                          for r, w, nb in zip(runs, words, nbits)],
+                         np.int64).reshape(s, 6)
+        per = (seg_count + _tile - 1) // _tile
+        seg = np.repeat(np.arange(s), per)
+        j = (np.arange(len(seg))
+             - np.repeat(np.cumsum(per) - per, per)) * _tile
+        out0 = np.cumsum(seg_count) - seg_count
+        tiles = np.concatenate([files[seg], np.stack(
+            [seg_start[seg] + j, out0[seg] + j,
+             np.minimum(_tile, seg_count[seg] - j)], axis=1)], axis=1)
+        if tiles.shape[1] != probe_tile_words():
+            raise RuntimeError("lookup_probe_segments: the plan's tile "
+                               "layout differs from the library's")
+        plan = to_device(np.concatenate([rows, tiles.ravel()]), dev)
+        launch("lookup_probe_level", dev, keys.data_ptr(), keys.shape[0],
+               kraw.data_ptr(), kraw.shape[0], plan.data_ptr(), len(rows),
+               len(tiles), _tile, _stride.bit_length() - 1, may.data_ptr(),
+               found.data_ptr(), rank.data_ptr())
+        lookup_probe.launches += 1
+    return may, found, rank
 
 
 def count_le(queries: torch.Tensor, mins: torch.Tensor) -> torch.Tensor:

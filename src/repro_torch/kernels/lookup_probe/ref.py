@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from ..common import u64_order
+from ..common import u64_mod, u64_order
 
 
 def bound_search(run: torch.Tensor, queries: torch.Tensor,
@@ -55,6 +55,25 @@ def lookup_probe_ref(queries: torch.Tensor, run: torch.Tensor,
     may = ((w >> (bit_idx & 63)) & 1).bool().all(dim=1)
     found, rank = rank_probe_ref(queries, run)
     return may, found, rank
+
+
+def lookup_probe_segments_ref(keys: torch.Tensor, kraw: torch.Tensor,
+                              rows, seg_start, seg_count, runs, words,
+                              nbits):
+    """The level form: ``lookup_probe_ref`` once per segment, segment s on
+    the keys ``rows[seg_start[s]:seg_start[s] + seg_count[s]]`` with bit
+    indices ``kraw[:, row] % nbits[s]`` (u64) against ``runs[s]`` and
+    ``words[s]``.  -> (may, found, rank), segment after segment."""
+    dev = keys.device
+    outs = [(torch.zeros(0, dtype=torch.bool, device=dev),
+             torch.zeros(0, dtype=torch.bool, device=dev),
+             torch.zeros(0, dtype=torch.int64, device=dev))]
+    for s in range(len(runs)):
+        a = int(seg_start[s])
+        r = torch.as_tensor(rows[a:a + int(seg_count[s])], device=dev)
+        bit_idx = u64_mod(kraw[:, r], nbits[s]).T.contiguous()
+        outs.append(lookup_probe_ref(keys[r], runs[s], bit_idx, words[s]))
+    return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
 
 
 def count_le_ref(queries: torch.Tensor, mins: torch.Tensor) -> torch.Tensor:

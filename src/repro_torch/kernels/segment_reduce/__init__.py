@@ -1,5 +1,5 @@
-from .ops import gather_min64, segment_sum
-from .ref import gather_min64_ref, segment_sum_ref
+from .ops import gather_min64, segment_sum, sketch_estimate
+from .ref import gather_min64_ref, segment_sum_ref, sketch_estimate_ref
 
 __all__ = ["gather_min64", "gather_min64_ref", "segment_sum",
-           "segment_sum_ref"]
+           "segment_sum_ref", "sketch_estimate", "sketch_estimate_ref"]

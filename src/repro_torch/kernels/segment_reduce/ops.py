@@ -1,6 +1,7 @@
 """Wrappers of the segment-reduce kernels (``csrc/kernels.cu``) that carry
 the adaptive tracker's sketch and lifetime-histogram updates and its
-count-min estimate.
+count-min estimate (``sketch_estimate``: the row hash inside the
+``gather_min64`` kernel).
 
 CPU tensors run the plain torch version (``ref.py``); CUDA tensors launch
 the CUDA kernel, which adds one to the wrapper's ``launches``, or raise.
@@ -11,8 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from ..common import check_columns, launch, outputs
-from .ref import gather_min64_ref, segment_sum_ref
+from ..common import check_columns, fast_mod_magic, launch, outputs
+from .ref import gather_min64_ref, segment_sum_ref, sketch_estimate_ref
 
 
 def segment_sum(ids: torch.Tensor, n_slots: int) -> torch.Tensor:
@@ -62,3 +63,30 @@ def gather_min64(bits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 gather_min64.launches = 0
+
+
+def sketch_estimate(bits: torch.Tensor, keys: torch.Tensor,
+                    seeds: torch.Tensor) -> torch.Tensor:
+    """The count-min estimate with the row hash on the card: per key, the
+    minimum in u64 order of ``bits[r, splitmix64(key ^ seeds[r]) % W]``
+    over the D rows (``DecaySketch._rows`` and ``gather_min64`` in one
+    pass).  bits (D, W) int64 patterns, keys (Q,) and seeds (D,) int64
+    u64 patterns -> (Q,) int64 patterns.  Launches count on
+    ``gather_min64``, whose kernel this is."""
+    dev = check_columns("sketch_estimate", bits, keys, seeds)
+    if bits.dim() != 2 or bits.shape[0] < 1 or bits.shape[1] < 1 \
+            or keys.dim() != 1 or tuple(seeds.shape) != (bits.shape[0],):
+        raise ValueError(f"sketch_estimate: want bits (D, W) with D, W >= 1, "
+                         f"keys (Q,) and seeds (D,), got {tuple(bits.shape)}, "
+                         f"{tuple(keys.shape)} and {tuple(seeds.shape)}")
+    if dev.type == "cpu":
+        return sketch_estimate_ref(bits, keys, seeds)
+    d, w = bits.shape
+    q = keys.shape[0]
+    (out,) = outputs(q, dev, torch.int64)
+    if q:
+        launch("sketch_estimate", dev, bits.data_ptr(), d, w,
+               *fast_mod_magic(w), keys.data_ptr(), seeds.data_ptr(), q,
+               out.data_ptr())
+        gather_min64.launches += 1
+    return out

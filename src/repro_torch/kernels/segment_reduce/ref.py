@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..common import u64_order
+from ..common import splitmix64, u64_mod, u64_order
 
 
 def segment_sum_ref(ids: torch.Tensor, n_slots: int) -> torch.Tensor:
@@ -33,3 +33,12 @@ def gather_min64_ref(bits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         torch.zeros(idx.shape, dtype=torch.int64, device=bits.device)
     got = torch.where(ok, got, torch.zeros_like(got))
     return u64_order(u64_order(got).amin(dim=1))
+
+
+def sketch_estimate_ref(bits: torch.Tensor, keys: torch.Tensor,
+                        seeds: torch.Tensor) -> torch.Tensor:
+    """bits (D, W) int64 patterns, keys (Q,) and seeds (D,) int64 u64
+    patterns -> (Q,) int64: ``gather_min64_ref`` at the sketch's row hash
+    ``splitmix64(key ^ seeds[r]) % W`` (u64)."""
+    cols = u64_mod(splitmix64(keys[:, None] ^ seeds[None, :]), bits.shape[1])
+    return gather_min64_ref(bits, cols)

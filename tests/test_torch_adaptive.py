@@ -304,13 +304,14 @@ def test_zipf_update_stream_matches_reference(adaptive, use_kernels):
 
 def test_adaptive_kernels_reached_on_the_store_path(monkeypatch):
     """With routing on, the adaptive store calls both segment-reduce ops
-    (their plain versions, on the CPU)."""
+    (their plain versions, on the CPU); the estimate goes through
+    ``gather_min64``'s key form, ``sketch_estimate``."""
     from repro_torch import kernels
     calls = {}
-    for name in ("segment_sum", "gather_min64"):
+    for name in ("segment_sum", "sketch_estimate"):
         def spy(*a, _f=getattr(kernels, name), _n=name, **k):
             calls[_n] = calls.get(_n, 0) + 1
             return _f(*a, **k)
         monkeypatch.setattr(kernels, name, spy)
     replay(T, "scavenger_adaptive", device=CPU, kernel_min_batch=1)
-    assert set(calls) == {"segment_sum", "gather_min64"}
+    assert set(calls) == {"segment_sum", "sketch_estimate"}

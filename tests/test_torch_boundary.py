@@ -176,11 +176,15 @@ def mocked_library(monkeypatch):
     monkeypatch.setattr(coalesce_ops, "smem_sort_cap", lambda: 8192)
     monkeypatch.setattr(partition_ops, "partition_tile", lambda: 1024)
     monkeypatch.setattr(paged_ops, "upload", lambda t, device: t)
+    monkeypatch.setattr(probe_ops, "to_device",
+                        lambda a, device: torch.from_numpy(a))
+    monkeypatch.setattr(probe_ops, "probe_tile_words", lambda: 9)
     for name in ("rank_probe_ref", "lookup_probe_ref", "count_le_ref",
-                 "interval_rank_ref"):
+                 "interval_rank_ref", "lookup_probe_segments_ref"):
         monkeypatch.setattr(probe_ops, name, plain)
     monkeypatch.setattr(coalesce_ops, "run_coalesce_ref", plain)
-    for name in ("segment_sum_ref", "gather_min64_ref"):
+    for name in ("segment_sum_ref", "gather_min64_ref",
+                 "sketch_estimate_ref"):
         monkeypatch.setattr(segment_ops, name, plain)
     for name, (mod, _) in OFFPATH.items():
         monkeypatch.setattr(mod, f"{name}_ref", plain)
@@ -192,11 +196,35 @@ def mocked_library(monkeypatch):
     return launched
 
 
+# the level form of lookup_probe and the key form of gather_min64, which
+# the store calls: wrapper -> (module, the library function it launches,
+# the wrapper whose count it adds to, CUDA-looking operands)
+FORMS = {
+    "lookup_probe_segments": (probe_ops, "lookup_probe_level",
+                              "lookup_probe", lambda: (
+        _cuda_looking([3, 1, 2]), _cuda_looking(np.zeros((7, 3))),
+        np.array([2, 0, 1]), np.array([0, 1]), np.array([2, 1]),
+        [_cuda_looking([1, 2, 5, 9]), _cuda_looking([3])],
+        [_cuda_looking(np.zeros(2)), _cuda_looking(np.zeros(1))],
+        [100, 64])),
+    "sketch_estimate": (segment_ops, "sketch_estimate", "gather_min64",
+                        lambda: (_cuda_looking(np.zeros((2, 5))),
+                                 _cuda_looking([3, 1, 2]),
+                                 _cuda_looking([7, 8]))),
+}
+
+
 @pytest.mark.parametrize("kernel", ["rank_probe", "lookup_probe",
                                     "count_le", "run_coalesce",
                                     "segment_sum", "gather_min64",
-                                    *OFFPATH])
+                                    *OFFPATH, *FORMS])
 def test_cuda_operands_launch_the_kernel(mocked_library, kernel):
+    if kernel in FORMS:
+        mod, launched, counted, args = FORMS[kernel]
+        getattr(mod, kernel)(*args())
+        assert mocked_library == [launched]
+        assert getattr(mod, counted).launches == 1
+        return
     if kernel in OFFPATH:
         mod, args = OFFPATH[kernel]
         fn = getattr(mod, kernel)
@@ -234,6 +262,19 @@ def test_failed_launch_raises_and_never_falls_back(mocked_library,
     with pytest.raises(RuntimeError, match="rank_probe failed"):
         probe_ops.rank_probe(_cuda_looking([1]), _cuda_looking([1]))
     assert probe_ops.rank_probe.launches == 0
+
+
+@pytest.mark.parametrize("kernel", list(FORMS))
+def test_failed_launch_of_a_level_or_key_form_raises_and_never_falls_back(
+        mocked_library, monkeypatch, kernel):
+    mod, launched, counted, args = FORMS[kernel]
+
+    def refused(name, device, *a):
+        raise RuntimeError(f"CUDA kernel {name} failed")
+    monkeypatch.setattr(mod, "launch", refused)
+    with pytest.raises(RuntimeError, match=f"{launched} failed"):
+        getattr(mod, kernel)(*args())
+    assert getattr(mod, counted).launches == 0
 
 
 @pytest.mark.parametrize("kernel", list(OFFPATH))

@@ -144,6 +144,87 @@ def test_gather_min64_matches_plain(cuda, d, w, q):
     _equal((got,), (K.gather_min64_ref(bits, idx),))
 
 
+# lookup_probe's level form: (run sizes, segment counts, k, key bound,
+# rows shared as in L0); empty and one-key runs, zero-query segments,
+# segments straddling tiles, a run past the fence cap, keys >= 2^63
+LEVEL_CASES = {
+    "one_file": ([5000], [3000], 7, 2**40, False),
+    "empty_and_one_key_runs": ([0, 1, 300, 1, 0], [10, 20, 600, 1, 3], 7,
+                               2**64, False),
+    "zero_query_segments": ([100, 200, 300], [0, 257, 0], 7, 2**40, False),
+    "many_files": ([12000] * 40, [51] * 40, 7, 2**64, False),
+    "l0_shared_rows": ([12000, 9000, 5, 0], [4000] * 4, 7, 2**40, True),
+    "past_fence_cap": ([2048 * 32 + 1], [2000], 7, 2**64, False),
+    **{f"k{k}": ([900, 400], [300, 200], k, 2**64, k % 2 == 1)
+       for k in range(1, 8)},
+}
+
+
+@pytest.mark.parametrize("tile,stride", [(512, 32), (64, 4), (1024, 1)])
+@pytest.mark.parametrize("case", sorted(LEVEL_CASES))
+def test_level_probe_matches_plain(cuda, case, tile, stride):
+    sizes, counts, k, hi, shared = LEVEL_CASES[case]
+    bpk = {1: 1, 2: 3, 3: 4, 4: 6, 5: 7, 6: 9, 7: 10}[k]
+    rng = np.random.default_rng(len(case) * 100 + k)
+    runs = [np.unique(rng.integers(0, hi - 1, n, dtype=np.uint64,
+                                   endpoint=True)) for n in sizes]
+    if shared and len(runs[0]):        # tables holding the same keys
+        runs = [runs[0]] + [np.unique(np.concatenate([r, runs[0][:30]]))
+                            for r in runs[1:]]
+    blooms = [BloomFilter(r, bpk) for r in runs]
+    pool = np.concatenate(runs + [np.zeros(1, np.uint64)])
+    keys = np.concatenate([pool[rng.integers(0, len(pool), 3000)],
+                           rng.integers(0, hi - 1, 3000, dtype=np.uint64,
+                                        endpoint=True)])
+    keys[:3] = [0, 2**63, hi - 1]
+    counts = np.asarray(counts, np.int64)
+    if shared:
+        rows = np.sort(rng.choice(len(keys), counts.max(), replace=False))
+        starts = np.zeros(len(counts), np.int64)
+        counts = np.full(len(counts), len(rows), np.int64)
+    else:
+        rows = rng.integers(0, len(keys), counts.sum())
+        starts = np.cumsum(counts) - counts
+    args = (_col(keys, cuda), _col(hash_family(keys, k), cuda),
+            rows.astype(np.int64), starts, counts,
+            [_col(r, cuda) for r in runs],
+            [_col(b.bits, cuda) for b in blooms], [b.nbits for b in blooms])
+    n0 = K.lookup_probe.launches
+    got = K.lookup_probe_segments(*args, _tile=tile, _stride=stride)
+    assert K.lookup_probe.launches == n0 + 1
+    _equal(got, K.lookup_probe_segments_ref(*args))
+    rank = got[2].cpu().numpy()
+    out = 0
+    for s, run in enumerate(runs):
+        q = keys[rows[starts[s]:starts[s] + counts[s]]]
+        assert (rank[out:out + len(q)] == np.searchsorted(run, q)).all()
+        out += len(q)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+@pytest.mark.parametrize("width", [1, 3, 4096, 4097])
+def test_sketch_estimate_matches_plain(cuda, width, depth):
+    from repro_torch.core.engine.keys import splitmix64
+    rng = np.random.default_rng(width + depth)
+    vals = rng.random((depth, width)) * 1e6
+    vals[rng.random((depth, width)) < 0.2] = 0.0
+    vals[0, 0] = -0.0
+    seeds = splitmix64(np.uint64(7) + np.arange(1, depth + 1,
+                                                 dtype=np.uint64))
+    keys = rng.integers(0, 2**64 - 1, 6000, dtype=np.uint64, endpoint=True)
+    keys[:3] = [0, 2**63, 2**64 - 1]
+    bits = torch.from_numpy(vals.view(np.int64).copy()).to(cuda)
+    kt, st = _col(keys, cuda), _col(seeds, cuda)
+    n0 = K.gather_min64.launches
+    got = K.sketch_estimate(bits, kt, st)
+    assert K.gather_min64.launches == n0 + 1
+    _equal((got,), (K.sketch_estimate_ref(bits, kt, st),))
+    idx = (splitmix64(keys[None, :] ^ seeds[:, None])
+           % np.uint64(width)).astype(np.int64)
+    want = vals.view(np.uint64)[np.arange(depth)[:, None], idx].min(0)
+    assert (got.cpu().numpy().view(np.uint64) == want).all()
+
+
 def test_durable_adaptive_store_opens_on_card(cuda, tmp_path):
     """A durable scavenger_adaptive store on the card recovers on the card
     (``Store.open(..., device="cuda")``) to the CPU store's state."""

@@ -100,18 +100,19 @@ def test_store_matches_reference_coalesce_window(engine, window,
 
 def test_kernel_routing_reaches_every_op(monkeypatch):
     """With routing forced, the store's read and fetch paths call all four
-    ops (their plain versions, on the CPU)."""
+    ops (their plain versions, on the CPU); the table probes go through
+    ``lookup_probe``'s level form, one call a level."""
     from repro_torch import kernels
     calls = {}
-    for name in ("rank_probe", "lookup_probe", "interval_rank",
+    for name in ("rank_probe", "lookup_probe_segments", "interval_rank",
                  "run_coalesce"):
         def spy(*a, _f=getattr(kernels, name), _n=name, **k):
             calls[_n] = calls.get(_n, 0) + 1
             return _f(*a, **k)
         monkeypatch.setattr(kernels, name, spy)
     replay(T, "scavenger", device="cpu", kernel_min_batch=1)
-    assert set(calls) == {"rank_probe", "lookup_probe", "interval_rank",
-                          "run_coalesce"}
+    assert set(calls) == {"rank_probe", "lookup_probe_segments",
+                          "interval_rank", "run_coalesce"}
 
 
 @pytest.mark.parametrize("use_kernels", [False, True])
