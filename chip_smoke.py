@@ -21,8 +21,14 @@ Phases, each of which raises on failure (exit code != 0):
              segments straddling tiles, runs past the fence cap, k = 1..7
              and L0 tables holding the same keys, at four tile and stride
              choices; ``gather_min64``'s key form at widths 1, 3, 4,096 and
-             4,097, depths 1 to 4 and keys 0, 2^63 and 2^64 - 1; outputs
-             must be equal exactly;
+             4,097, depths 1 to 4 and keys 0, 2^63 and 2^64 - 1;
+             ``segment_sum``'s key form (``sketch_add``) at depths 1 to 5
+             and widths 1, 3, 4,096, 4,097 and 2^18 + 1, one key, equal
+             keys, keys >= 2^63, with and without a decay factor, its
+             scratch zero after each call; ``count_le`` and
+             ``interval_rank`` at N 1, 2, 7, 8, 95, the shared-memory cap
+             and one past it, queries equal to the bounds; outputs (the counters'
+             bit patterns) must be equal exactly;
 2b. bench  — the five kernels the store never routes to (``gc_lookup``,
              ``bloom_probe``, ``merge_dedup``, ``hot_cold_partition``,
              ``page_gather``) against their plain versions at the reference
@@ -56,14 +62,18 @@ Phases, each of which raises on failure (exit code != 0):
              it and every acknowledged write reads back; the pass finishes,
              the store closes and reopens to the same ``stats()``.  All six
              kernels' launch counts are zeroed just before and read just
-             after; each must be > 0;
+             after; each must be > 0, and so must ``segment_sum``'s two
+             forms' (the sketches' ``sketch_add``, the lifetime
+             histogram's index form);
 6. shapes  — each kernel against its plain version again, on the largest
              inputs the main and adaptive runs gave it, timed with CUDA
              events beside its plain version, a PyTorch library call and
-             its bound; ``lookup_probe``'s table form (at the largest
-             call's largest table) and ``gather_min64``'s index form (on
-             the largest estimate) are recorded on their own line, as the
-             forms the main path made before;
+             its bound (``segment_sum`` in its key form, the largest
+             sketch add); ``segment_sum``'s index form (the lifetime
+             histogram's largest add), ``lookup_probe``'s table form (at
+             the largest call's largest table) and ``gather_min64``'s
+             index form (on the largest estimate, a form the main path no
+             longer makes) are recorded on their own line;
 7. parity  — the seven engines (``scavenger_adaptive`` with its tracker on
              and off) on the fixed mixed op stream of the reference
              package's parity test: the port on the card with kernels on
@@ -83,8 +93,11 @@ only builds that port's library and times ``segment_sum`` and
 ``gather_min64`` at the adaptive run's shapes, ``run_coalesce`` at M
 from 64 to 8,192 beside ``torch.sort``, one level's table probes as the
 store makes them (one level probe, or one launch a table on trees before
-it) with the level form's tile and stride choices, and the routed sketch
-estimate.  Run either on two trees in one call to compare them.
+it) with the level form's tile and stride choices, the routed sketch
+estimate, the routed sketch add at 4,096 and 1,024 keys, a routed
+``AccessTracker.observe_writes`` of 4,096 keys and ``interval_rank`` at
+10,942 queries over 1 to 2,048 files, each as that tree makes it.
+Run either on two trees in one call to compare them.
 
 Device times come from the profiler, each kernel's mean over the launches
 that three sessions recorded (late in a long process a session loses
@@ -93,7 +106,8 @@ queued behind a spin kernel, and its record names it under
 ``events_timed``.
 
 The second-to-last line of output is the card's name and power limit, the
-one before it the per-kernel JSON record (eleven kernels); the last line is
+one before it the per-kernel JSON record (eleven kernels), the one before
+that the records of the other forms; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -177,6 +191,7 @@ CUDA_KERNELS = ("rank_probe_kernel", "lookup_probe_kernel", "count_le_kernel",
                 # for --kernel-times --src on such a tree
                 "coalesce_smem_kernel",
                 "mark_kernel", "segment_sum_kernel", "gather_min64_kernel",
+                "sketch_scratch_kernel", "sketch_scale_kernel",
                 # segment_sum zeroes its counts with a memset on the stream
                 "Memset",
                 "gc_lookup_kernel", "bloom_probe_kernel",
@@ -507,6 +522,88 @@ def _check_level_cases(rng, device, errs):
                     f"sizes={sizes[:4]} k={k}")
 
 
+def _check_sketch_add_cases(rng, device, errs):
+    """``segment_sum``'s key form (``sketch_add``) against its plain version
+    and the host's own arithmetic (``counts * f``, then ``+ bincount`` per
+    row), bit for bit: depths 1 to 5, widths 1, 3, 4,096 and 4,097, tables
+    of 2^18 slots and past, one key, all keys equal, keys >= 2^63, with
+    and without a decay factor, decayed fractional counters, and a call
+    with no keys (the scale alone).  The scratch must be zero after every
+    call."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.engine.keys import splitmix64
+    shapes = [(d, w, q) for w in (1, 3, 4096, 4097) for d in (1, 2, 3, 4, 5)
+              for q in (1, 4096)]
+    shapes += [(2, 1 << 17, 4096), (1, (1 << 18) + 1, 4096),
+               (4, 70000, 20000), (2, 4096, 0)]
+    for i, (d, w, q) in enumerate(shapes):
+        vals = rng.random((d, w)) * 1e3
+        vals[rng.random((d, w)) < 0.3] = 0.0
+        keys = rng.integers(0, 2**64 - 1, q, dtype=np.uint64, endpoint=True)
+        if i % 3 == 1 and q:
+            keys[:] = keys[0]                 # every key in one slot a row
+        elif i % 3 == 2:
+            keys |= np.uint64(1 << 63)
+        seeds = splitmix64(np.uint64(i) + np.arange(1, d + 1,
+                                                     dtype=np.uint64))
+        scale = 0.5 ** (float(i + 1) / 97.0) if i % 2 or not q else None
+        kt, st = u64_tensor(keys, device), u64_tensor(seeds, device)
+        got = torch.from_numpy(vals.copy()).to(device)
+        want = got.clone()
+        scratch = torch.zeros(d * w, dtype=torch.int32, device=device)
+        kernels.sketch_add(got, kt, st, scale=scale, scratch=scratch)
+        kernels.sketch_add_ref(want, kt, st, scale)
+        errs["segment_sum"] = max(errs["segment_sum"], max_abs_err(
+            (got.view(torch.int64),), (want.view(torch.int64),)))
+        require(not bool(scratch.any()),
+                f"sketch_add left its scratch non-zero at d={d} w={w}")
+        idx = (splitmix64(keys[None, :] ^ seeds[:, None])
+               % np.uint64(w)).astype(np.int64)
+        host = vals * scale if scale is not None else vals.copy()
+        for r in range(d):
+            host[r] += np.bincount(idx[r], minlength=w)
+        require((got.cpu().numpy().view(np.int64)
+                 == host.view(np.int64)).all(),
+                f"sketch_add disagrees with the host's add at d={d} w={w} "
+                f"q={q}")
+
+
+def _check_count_le_cap_cases(rng, device, errs):
+    """``count_le`` and ``interval_rank`` with the level's bounds in shared
+    memory (N 8, 95 and the cap) and in device memory (N 1, 2, 7 and cap +
+    1): queries equal to every min and max, one either side of each, and
+    0, 2^63 and 2^64 - 1."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.kernels.common import count_le_smem_files
+    cap = count_le_smem_files()
+    for n in (1, 2, 7, 8, 95, cap, cap + 1):
+        edges = np.unique(rng.integers(1, 2**64 - 2, 4 * n, dtype=np.uint64))
+        require(len(edges) >= 2 * n, "bound draw too small")
+        mins, maxs = edges[0:2 * n:2], edges[1:2 * n:2]
+        maxs[: n // 3] = mins[: n // 3]       # one-key intervals
+        edge = np.array([0, 2**63, 2**64 - 1], np.uint64)
+        qs = np.concatenate([mins, maxs, mins - np.uint64(1),
+                             maxs + np.uint64(1), edge,
+                             rng.integers(0, 2**64 - 1, 10942,
+                                          dtype=np.uint64, endpoint=True)])
+        qt, mt, xt = (u64_tensor(a, device) for a in (qs, mins, maxs))
+        got_c, got_i = kernels.count_le(qt, mt), kernels.interval_rank(
+            qt, mt, xt)
+        errs["count_le"] = max(
+            errs["count_le"],
+            max_abs_err((got_c,), (kernels.count_le_ref(qt, mt),)),
+            max_abs_err((got_i,), (kernels.interval_rank_ref(qt, mt, xt),)))
+        cnt = np.searchsorted(mins, qs, side="right")
+        fidx = np.where((cnt > 0) & (qs <= maxs[np.maximum(cnt - 1, 0)]),
+                        cnt - 1, -1)
+        require((got_c.cpu().numpy() == cnt).all()
+                and (got_i.cpu().numpy() == fidx).all(),
+                f"count_le / interval_rank disagree with numpy at n={n}")
+
+
 def _check_estimate_cases(rng, device, errs):
     """``gather_min64``'s key form (``sketch_estimate``) against its plain
     version and the sketch's NumPy row hash: widths 1, 3, 4,096 and 4,097,
@@ -572,7 +669,9 @@ def kernel_phase(device) -> dict:
         _check_coalesce_case(rng, device, m, errs, hr, hp, pin=True)
     for m, hr, hp in ((1000, 400, 2**16), (4096, 1, 1), (cap, 2**32 - 1, 5)):
         _check_coalesce_case(rng, device, m, errs, hr, hp, equal=True)
+    _check_count_le_cap_cases(rng, device, errs)
     _check_segment_cases(rng, device, errs)
+    _check_sketch_add_cases(rng, device, errs)
     _check_level_cases(rng, device, errs)
     _check_estimate_cases(rng, device, errs)
     log("[kernels] max abs err at adversarial shapes: " + json.dumps(errs))
@@ -800,7 +899,7 @@ class Capture:
     ``core/adaptive/`` call), and tallies the level probes' shapes."""
 
     NAMES = ("rank_probe", "lookup_probe_segments", "interval_rank",
-             "run_coalesce", "segment_sum", "sketch_estimate")
+             "run_coalesce", "segment_sum", "sketch_add", "sketch_estimate")
 
     def __init__(self):
         import repro_torch.kernels as K
@@ -834,8 +933,8 @@ class Capture:
         def call(*args, **kw):
             if name == "segment_sum":     # ids + slots
                 size = args[0].shape[0] + args[1]
-            elif name == "sketch_estimate":   # table + queries
-                size = args[0].numel() + args[1].numel()
+            elif name in ("sketch_estimate", "sketch_add"):
+                size = args[0].numel() + args[1].numel()  # table + keys
             elif name == "lookup_probe_segments":     # slots probed
                 size = int(sum(args[4]))
                 lv = self.levels
@@ -1094,7 +1193,7 @@ def adaptive_run(device, *, dataset_bytes=1 << 30, n_keys=1 << 20,
         return None
 
     from repro_torch.core.read.lookup import lookup_entries
-    for fn in kernels.KERNELS:
+    for fn in kernels.KERNELS + (kernels.sketch_add,):
         fn.launches = 0
     lookup_entries.host_table_probes = 0
     with capture if capture is not None else contextlib.nullcontext():
@@ -1122,8 +1221,13 @@ def adaptive_run(device, *, dataset_bytes=1 << 30, n_keys=1 << 20,
         require(store.stats() == before,
                 "reopened store's stats differ from those before close")
     launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    # segment_sum's two forms: the sketches' adds (and decays) and the
+    # lifetime histogram's adds
+    by_form = {"key": kernels.sketch_add.launches,
+               "index": launches["segment_sum"] - kernels.sketch_add.launches}
     host_probes = lookup_entries.host_table_probes
     log("[adaptive] launches: " + json.dumps(launches)
+        + f"; segment_sum by form: {json.dumps(by_form)}"
         + f"; table probes on the host path: {host_probes}")
     st = store.stats()
     wb = store.io.write_bytes
@@ -1145,6 +1249,7 @@ def adaptive_run(device, *, dataset_bytes=1 << 30, n_keys=1 << 20,
     store.close()
     tmp.cleanup()
     out = {"phases": phases, "launches": launches,
+           "segment_sum_by_form": by_form,
            "host_table_probes": host_probes, "device_busy": busy,
            "crash_point": crash_point, "crashed_batch": crashed,
            "space_amp": st["space_amp"], "write_amp": st["write_amp"],
@@ -1162,14 +1267,17 @@ def _bound(nbytes: float, nops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def shapes_phase(capture: Capture, launches: dict) -> tuple:
+def shapes_phase(capture: Capture, launches: dict, by_form: dict) -> tuple:
     """Main-path inputs: exact check + timings.  -> (kernel records, the
-    records of the forms the main path no longer calls: ``lookup_probe``
-    one table a launch, ``gather_min64`` on a host-built index matrix).
+    records of the other forms: ``segment_sum``'s index form, which the
+    lifetime histogram's adds take, and those the main path no longer
+    calls, ``lookup_probe`` one table a launch and ``gather_min64`` on a
+    host-built index matrix).
 
     ``launches``: each kernel's count from the run that carries it (the
     main run for the probes and fetch planning, the adaptive run for the
-    segment-reduce kernels)."""
+    segment-reduce kernels); ``by_form``: ``segment_sum``'s count by form
+    in the adaptive run."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -1182,8 +1290,9 @@ def shapes_phase(capture: Capture, launches: dict) -> tuple:
     recs, forms = [], []
 
     def record(name, args, kern, plain, lib, nbytes, nops, into=recs,
-               form=None):
-        err = max_abs_err(kern(), plain())
+               form=None, form_launches=None, err=None):
+        if err is None:
+            err = max_abs_err(kern(), plain())
         require(err == 0, f"{name} disagrees with its plain version at "
                           f"main-path shapes")
         # ms: the CUDA kernels alone (a wrapper's operand checks are not
@@ -1203,7 +1312,8 @@ def shapes_phase(capture: Capture, launches: dict) -> tuple:
                "events_timed": EVENTS_TIMED[n0:]}
         if form is not None:
             rec["form"] = form
-            rec["launches"] = None      # the main path no longer calls it
+            # None: the main path no longer calls this form
+            rec["launches"] = form_launches
         log(f"[shapes] {json.dumps(rec)}")
         into.append(rec)
 
@@ -1274,7 +1384,36 @@ def shapes_phase(capture: Capture, launches: dict) -> tuple:
            lambda: torch.sort(packed),
            16 * m + 18 * m, m * max(1.0, math.log2(m)) + 4 * m)
 
-    # segment_sum's time holds its memset of the counts; one id -> one add
+    # segment_sum's key form, the sketch's add into its resident counters
+    # at the largest add (a decay factor folded in where the store gave
+    # one), checked on fresh copies and timed on a working copy; bytes:
+    # the keys, the seeds, and every counter read and written with a
+    # factor, else the slots the keys touch; the library call adds ones at
+    # the hashed slots (the hash computed outside it)
+    (counts, keys, seeds), kw = best["sketch_add"][1:]
+    scale = kw.get("scale")
+    (d, w), q = counts.shape, keys.shape[0]
+    got, want = counts.clone(), counts.clone()
+    kernels.sketch_add(got, keys, seeds, **kw)
+    kernels.sketch_add_ref(want, keys, seeds, scale)
+    err = max_abs_err((got.view(torch.int64),), (want.view(torch.int64),))
+    flat = (u64_mod(splitmix64(keys[:, None] ^ seeds[None, :]), w)
+            + torch.arange(d, device=keys.device) * w).reshape(-1)
+    ones = torch.ones(flat.shape[0], dtype=torch.float64,
+                      device=keys.device)
+    touched = int(torch.unique(flat).shape[0])
+    work, work_p, work_l = counts.clone(), counts.clone(), counts.clone()
+    record("segment_sum", (counts, keys, seeds),
+           lambda: kernels.sketch_add(work, keys, seeds, **kw),
+           lambda: kernels.sketch_add_ref(work_p, keys, seeds, scale),
+           lambda: work_l.view(-1).index_add_(0, flat, ones),
+           8 * q + 8 * d + 16 * (d * w if scale is not None else touched),
+           q * d * 16 + (d * w if scale is not None else 0), err=err)
+    recs[-1]["form"] = "key"
+    recs[-1]["scaled"] = scale is not None
+    recs[-1]["launches_by_form"] = by_form
+    # the index form at the lifetime histogram's largest add: its time
+    # holds its memset of the counts; one id -> one add
     ids, slots = best["segment_sum"][1]
     p = ids.shape[0]
     valid = ids[(ids >= 0) & (ids < slots)]
@@ -1282,7 +1421,8 @@ def shapes_phase(capture: Capture, launches: dict) -> tuple:
            lambda: (kernels.segment_sum(ids, slots),),
            lambda: (kernels.segment_sum_ref(ids, slots),),
            lambda: torch.bincount(valid, minlength=slots),
-           8 * p + 8 * slots, p)
+           8 * p + 8 * slots, p, into=forms, form="index",
+           form_launches=by_form["index"])
 
     # the estimate with the row hash in the kernel; bytes: the table, the
     # keys, the seeds and the estimates
@@ -1718,8 +1858,10 @@ def kernel_times_only(src: Path) -> None:
     ``queued_ms``; for ``run_coalesce`` also the wrapper call
     (``call_ms``) and ``torch.sort`` of the packed pairs beside it, after
     holding the kernel against its plain version.  Then a level's table
-    probes (``_level_times``) and the routed sketch estimate
-    (``_estimate_times``), as the store makes them on that tree."""
+    probes (``_level_times``), the routed sketch estimate
+    (``_estimate_times``) and add (``_sketch_add_times``), the tracker's
+    write observation (``_observe_times``) and the level file assignment
+    (``_interval_times``), as the store makes them on that tree."""
     import numpy as np
     import torch
     sys.path.insert(0, str(src.resolve()))
@@ -1763,6 +1905,9 @@ def kernel_times_only(src: Path) -> None:
                         for _ in range(3)]}
     out["level_probe"] = _level_times(kernels)
     out["estimate"] = _estimate_times(kernels)
+    out["sketch_add"] = _sketch_add_times(kernels)
+    out["observe_writes"] = _observe_times()
+    out["interval_rank"] = _interval_times(kernels)
     print(json.dumps({"kernel_times": out}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -1910,7 +2055,7 @@ def _estimate_times(kernels, device="cuda") -> dict:
     rng = np.random.default_rng(21)
     sk = DecaySketch(4096, 2, 5000.0, policy=accel.KernelPolicy(True, 1),
                      device=device)
-    sk.counts[:] = rng.random(sk.counts.shape) * 1e3
+    sk.counts = rng.random((2, 4096)) * 1e3
     keys = rng.integers(0, 1 << 40, 5433, dtype=np.uint64)
     want = sk.counts[np.arange(2)[:, None], sk._rows(keys)].min(0)
     require((sk.estimate(keys) == want).all(),
@@ -1919,11 +2064,138 @@ def _estimate_times(kernels, device="cuda") -> dict:
     def call():
         return sk.estimate(keys)
     rec = {"form": "key" if hasattr(kernels, "sketch_estimate") else "index",
+           "counters": "resident" if hasattr(kernels, "sketch_add")
+           else "uploaded",
            "device_ms": [device_ms(call, iters=20, only=CUDA_KERNELS,
                                    label="estimate") for _ in range(3)],
            "call_ms": [_wall_ms(call, iters=200) for _ in range(3)]}
     log(f"[kernel-times] estimate: {json.dumps(rec)}")
     return rec
+
+
+SKETCH_ADD_KEYS = (4096, 1024)
+
+
+def _sketch_add_times(kernels, device="cuda") -> dict:
+    """``DecaySketch.add`` routed, on a 2 x 4,096 sketch (the 1 GiB
+    ``scavenger_adaptive`` configuration's) at ``SKETCH_ADD_KEYS`` keys,
+    as the tree makes it: resident counters and ``sketch_add`` (this
+    tree), or the host's ``_rows``, the index upload, ``segment_sum``, the
+    download and the host add (trees before it).  Each call is first held
+    against a host-path sketch; then the device time of the call's kernels
+    (three profiler sessions), the wall ms of a call that ends waiting for
+    the card, and the wall ms of the call alone (what the store waits:
+    a resident add does not wait for the card)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import accel
+    from repro_torch.core.adaptive.sketch import DecaySketch
+    rng = np.random.default_rng(23)
+    res = {}
+    for q in SKETCH_ADD_KEYS:
+        sk = DecaySketch(4096, 2, 5000.0, policy=accel.KernelPolicy(True, 1),
+                         device=device)
+        host = DecaySketch(4096, 2, 5000.0)
+        start = rng.random((2, 4096)) * 1e3
+        sk.counts, host.counts = start.copy(), start.copy()
+        keys = rng.integers(0, 1 << 40, q, dtype=np.uint64)
+        for s in (sk, host):
+            s.decay_to(100.0)
+            s.add(keys)
+        require((sk.counts.view(np.int64) == host.counts.view(np.int64))
+                .all(), f"sketch add of {q} keys disagrees with the host path")
+
+        def call():
+            sk.add(keys)
+
+        def waited():
+            sk.add(keys)
+            torch.cuda.synchronize()
+        rec = {"form": "resident" if hasattr(kernels, "sketch_add")
+               else "host_rows_segment_sum",
+               "device_ms": [device_ms(call, iters=20, only=CUDA_KERNELS,
+                                       label=f"sketch add {q}")
+                             for _ in range(3)],
+               "call_waited_ms": [_wall_ms(waited, iters=200)
+                                  for _ in range(3)],
+               "call_ms": [_wall_ms(call, iters=200) for _ in range(3)]}
+        torch.cuda.synchronize()
+        log(f"[kernel-times] sketch_add {q}: {json.dumps(rec)}")
+        res[f"keys_{q}"] = rec
+    return res
+
+
+def _observe_times(device="cuda", n_batches=64) -> dict:
+    """One routed ``AccessTracker.observe_writes`` of 4,096 Zipf(0.99)
+    keys on the 1 GiB ``scavenger_adaptive`` configuration's tracker (both
+    sketches' decay, the write sketch's add, the lifetime observation), as
+    the tree makes it: wall ms a call ending in a wait for the card, three
+    loops over ``n_batches`` distinct batches after one warm-up loop (so
+    the lifetime observations route, every group seen before)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import EngineConfig
+    from repro_torch.core.adaptive.tracker import AccessTracker
+    cfg = EngineConfig.scaled("scavenger_adaptive", 1 << 30,
+                              est_keys=1 << 20)
+    tr = AccessTracker.from_config(cfg, device)
+    rng = np.random.default_rng(29)
+    zipf = zipf_sampler(1 << 20, 0.99, 29)
+    batches = [zipf(rng, 4096).astype(np.uint64) for _ in range(n_batches)]
+
+    def loop():
+        t0 = time.perf_counter()
+        for ks in batches:
+            tr.observe_writes(ks)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / len(batches) * 1e3
+    loop()
+    rec = {"call_ms": [loop() for _ in range(3)],
+           "device_ms": device_ms(lambda: tr.observe_writes(batches[0]),
+                                  iters=20, only=CUDA_KERNELS,
+                                  label="observe_writes"),
+           "groups": cfg.adaptive_groups,
+           "sketch": [cfg.adaptive_sketch_depth, cfg.adaptive_sketch_width]}
+    log(f"[kernel-times] observe_writes: {json.dumps(rec)}")
+    return rec
+
+
+# (queries, files) of the level file assignment: the main path's largest
+# call, a few files, and the shared-memory form's cap
+INTERVAL_SHAPES = ((10942, 95), (10942, 1), (10942, 2), (10942, 4),
+                   (10942, 8), (10942, 2048))
+
+
+def _interval_times(kernels, device="cuda") -> dict:
+    """``interval_rank`` (the ``count_le`` kernel's interval form, the
+    level file assignment) at ``INTERVAL_SHAPES`` on seeded disjoint
+    bounds, half the queries inside a file: held against its plain
+    version, then its device time in three profiler sessions of 200
+    launches each and by ``queued_ms``."""
+    import numpy as np
+    res = {}
+    rng = np.random.default_rng(31)
+    for q, n in INTERVAL_SHAPES:
+        edges = np.unique(rng.integers(0, 1 << 40, 4 * n, dtype=np.uint64))
+        mins, maxs = edges[0:2 * n:2], edges[1:2 * n:2]
+        qs = rng.integers(0, 1 << 40, q, dtype=np.uint64)
+        pick = rng.integers(0, n, q // 2)
+        qs[: q // 2] = mins[pick] + (maxs[pick] - mins[pick]) // np.uint64(2)
+        qt, mt, xt = (u64_tensor(a, device) for a in (qs, mins, maxs))
+        err = max_abs_err((kernels.interval_rank(qt, mt, xt),),
+                          (kernels.interval_rank_ref(qt, mt, xt),))
+        require(err == 0, f"interval_rank disagrees with its plain version "
+                          f"at q={q} n={n}")
+
+        def call():
+            return kernels.interval_rank(qt, mt, xt)
+        rec = {"ms": [device_ms(call, iters=200, only=CUDA_KERNELS,
+                                label=f"interval_rank {q}x{n}")
+                      for _ in range(3)],
+               "queued_ms": queued_ms(call, 200)}
+        log(f"[kernel-times] interval_rank q={q} n={n}: {json.dumps(rec)}")
+        res[f"q{q}_n{n}"] = rec
+    return res
 
 
 def card_line() -> str:
@@ -1942,7 +2214,8 @@ def main(argv) -> int:
                     help="only build the library and time segment_sum and "
                          "gather_min64 at the adaptive run's shapes, "
                          "run_coalesce at M from 64 to 8,192, a level's "
-                         "table probes and the sketch estimate")
+                         "table probes, the sketch estimate and add, the "
+                         "tracker's observe_writes and interval_rank")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="directory holding the repro_torch package")
     args = ap.parse_args(argv)
@@ -1978,17 +2251,21 @@ def main(argv) -> int:
     for name in ADAPTIVE_KERNELS:
         require(adaptive["launches"][name] > 0,
                 f"kernel {name} was not launched in the adaptive run")
+    for form, n in adaptive["segment_sum_by_form"].items():
+        require(n > 0, f"segment_sum's {form} form was not launched in the "
+                       f"adaptive run")
     # each kernel's count from the run that carries it
     launches = {name: (main if name in MAIN_KERNELS else adaptive)
                 ["launches"][name] for name in ADAPTIVE_KERNELS}
-    recs, forms = shapes_phase(cap, launches)
+    recs, forms = shapes_phase(cap, launches,
+                               adaptive["segment_sum_by_form"])
     recs += bench_recs
     log("[shapes] level probes of the two store runs: "
         + json.dumps(cap.levels))
     parity_phase()
     crash_phase()
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"earlier_forms": forms}))
+    print(json.dumps({"other_forms": forms}))
     print(json.dumps({"kernels": recs}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

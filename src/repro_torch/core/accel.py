@@ -20,9 +20,15 @@ column and hash column that go up once a lookup (``ProbeKeys``).  On
 a CUDA device the ops launch the CUDA kernels; on the CPU they run their
 plain torch versions.
 
-The adaptive tracker (``core/adaptive/``) routes its sketch and histogram
-updates itself, through the same policy, on the device the store passes
-down; ``op_timer`` times its observation as one op class.
+The adaptive tracker (``core/adaptive/``) routes its own work, on the
+device the store passes down.  With kernels on, its two sketches keep their
+counters resident on that device, so every sketch add and estimate runs
+there whatever the batch size: ``kernel_min_batch`` does not apply to a
+resident sketch, whose host path would cost a download and an upload of
+the counters per batch.  A sketch add uploads only its keys, brings nothing
+back and does not wait for the card.  The lifetime histogram stays on the
+host and routes its adds through the same policy as the probes.
+``op_timer`` times the tracker's observation as one op class.
 
 Wall-clock spent inside routed ops is emitted to the observer as a
 ``kernel_<op>_us`` histogram per fused op class (real host microseconds,

@@ -14,25 +14,32 @@ batches in O(depth * width) memory.  Two properties matter to callers:
 
 Updates are vectorized (one ``np.bincount`` per row, ``depth`` is a small
 constant): a whole key column crosses in one call, zero per-key loops.
-Eligible batches route the row updates through the ``segment_sum`` kernel
-and the count-min estimate through ``gather_min64``'s key form
-(``sketch_estimate``: the row hash in the kernel) on the sketch's device:
-both are bit-identical to the host path — unit-count adds accumulate as
-one integer-valued float add per slot either way, and the estimate's min
-compares the counters' 64-bit patterns as unsigned integers, exact for
-the sketch's non-negative float64 counters.  The counters change in
-place, so each routed estimate uploads them anew (at most a few hundred
-KB), with the keys and the row seeds in the same copy; they are never held
-in a ``DeviceCache``.
+
+With a kernel policy (kernels on), the counters are **resident**: a
+float64 tensor on the sketch's device, the row seeds uploaded once.  Every
+add then runs there whatever the batch size, as ``segment_sum``'s key form
+(``sketch_add``: the row hash and the add into the counters in one launch,
+the keys the only upload, nothing brought back and no wait for the card),
+and every estimate as ``gather_min64``'s (``sketch_estimate``: only the
+keys go up).  Both are bit-identical to the host path: unit-count adds
+accumulate as one integer-valued float add per slot either way, a decay is
+the same IEEE multiply per counter in the same order (a factor waits for
+the next launch that touches the counters, which applies it first, and is
+never multiplied into another factor), and the estimate's min compares the
+counters' 64-bit patterns as unsigned integers, exact for the sketch's
+non-negative float64 counters.  ``counts`` brings the counters to the host
+(waiting for the card) for the snapshot and the host-side sums, and takes a
+host array to upload; with kernels off the sketch stays NumPy.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ... import kernels
 from .. import accel
-from ...kernels.common import to_device, to_host
+from ...kernels.common import to_device, to_device_async, to_host
 from ..engine.keys import splitmix64
 
 _MIN_MASS = 1e-9        # decayed mass below this counts as an empty slot
@@ -48,8 +55,9 @@ def normalize_half_life(half_life: float | None) -> float | None:
 
 
 class DecaySketch:
-    __slots__ = ("width", "depth", "half_life", "counts", "clock", "_seeds",
-                 "policy", "device")
+    __slots__ = ("width", "depth", "half_life", "clock", "_seeds", "policy",
+                 "device", "_counts", "_dev", "_dseeds", "_scratch",
+                 "_pending")
 
     def __init__(self, width: int, depth: int = 2,
                  half_life: float | None = None, seed: int = 0,
@@ -59,14 +67,67 @@ class DecaySketch:
         self.width = int(width)
         self.depth = int(depth)
         self.half_life = normalize_half_life(half_life)
-        self.counts = np.zeros((self.depth, self.width), np.float64)
         self.clock = 0.0
         self._seeds = splitmix64(
             np.uint64(seed) + np.arange(1, self.depth + 1, dtype=np.uint64))
         self.policy = policy    # KernelPolicy (core/accel.py) or None
-        # where routed batches run: CUDA unless the caller names a device
+        # where the resident counters live: CUDA unless the caller names a
+        # device
         self.device = (None if policy is None
                        else accel.resolve_device(device))
+        # host mode: the counters; resident: the host copy, read-only, or
+        # None after a change on the device
+        self._counts = np.zeros((self.depth, self.width), np.float64)
+        self._dev = self._dseeds = self._scratch = None
+        self._pending = None    # a decay factor the device has not applied
+        if policy is not None and policy.enabled:
+            self._dseeds = to_device(self._seeds, self.device)
+            self._upload(self._counts)
+            if self.device.type == "cuda":     # sketch_add's counts
+                self._scratch = torch.zeros(self.depth * self.width,
+                                            dtype=torch.int32,
+                                            device=self.device)
+
+    # ------------------------------------------------------------ counters
+    @property
+    def counts(self) -> np.ndarray:
+        """The (depth, width) float64 counters.  A resident sketch brings
+        them to the host (waiting for the card) and keeps that copy,
+        read-only, until its counters next change."""
+        if self._counts is None:
+            self._apply_pending()
+            host = self._dev.to("cpu", copy=True).numpy()
+            host.flags.writeable = False
+            self._counts = host
+        return self._counts
+
+    @counts.setter
+    def counts(self, arr: np.ndarray) -> None:
+        """Replace the counters (a snapshot's restore); a resident sketch
+        uploads a copy of ``arr``."""
+        if self._dev is None:
+            self._counts = arr
+            return
+        arr = np.asarray(arr, np.float64)
+        if arr.shape != (self.depth, self.width):
+            raise ValueError(f"sketch counters must be "
+                             f"{(self.depth, self.width)}, got {arr.shape}")
+        self._upload(arr)
+
+    def _upload(self, arr: np.ndarray) -> None:
+        host = np.array(arr, np.float64)
+        self._dev = torch.from_numpy(host).to(self.device, copy=True)
+        self._pending = None
+        host.flags.writeable = False
+        self._counts = host
+
+    def _apply_pending(self) -> None:
+        """A resident sketch's waiting decay factor, applied on its device
+        (a ``sketch_add`` with no keys)."""
+        if self._pending is not None:
+            kernels.sketch_add(self._dev, self._dseeds[:0], self._dseeds,
+                               scale=self._pending)
+            self._pending = None
 
     # ---------------------------------------------------------------- decay
     def decay_to(self, clock: float) -> None:
@@ -75,8 +136,18 @@ class DecaySketch:
         if d <= 0:
             return
         self.clock = float(clock)
-        if self.half_life is not None:
-            self.counts *= 0.5 ** (d / self.half_life)
+        if self.half_life is None:
+            return
+        factor = 0.5 ** (d / self.half_life)
+        if self._dev is None:
+            self._counts *= factor
+            return
+        # resident: the factor waits for the next launch on the counters
+        # (an add applies it in its own launch); an earlier one still
+        # waiting is applied first, never multiplied into this one
+        self._apply_pending()
+        self._pending = factor
+        self._counts = None
 
     # --------------------------------------------------------------- update
     def _rows(self, keys: np.ndarray) -> np.ndarray:
@@ -90,54 +161,53 @@ class DecaySketch:
 
         Unit-count adds accumulate occurrence counts first and add each
         slot's total as a single integer-valued float — the exact shape of
-        the kernel's ``counts += segment_sum`` update, so the host and
-        kernel paths stay bit-identical."""
+        the resident sketch's ``sketch_add``, so the host and device paths
+        stay bit-identical.  Weighted adds (no caller in the store) take
+        the host path, over a resident sketch's downloaded counters."""
         if len(keys) == 0:
+            return
+        if self._dev is not None and weights is None:
+            kernels.sketch_add(self._dev, to_device_async(keys, self.device),
+                               self._dseeds, scale=self._pending,
+                               scratch=self._scratch)
+            self._pending = None
+            self._counts = None
             return
         idx = self._rows(keys)
         if weights is not None:
             w = np.asarray(weights, np.float64)
+            counts = self.counts if self._dev is None else self.counts.copy()
             for r in range(self.depth):
-                np.add.at(self.counts[r], idx[r], w)
+                np.add.at(counts[r], idx[r], w)
+            if self._dev is not None:
+                self.counts = counts
             return
-        pol = self.policy
-        if pol is not None and pol.ready(len(keys)):
-            flat = (idx + np.arange(self.depth)[:, None] * self.width).ravel()
-            (seg,) = to_host(kernels.segment_sum(
-                to_device(flat, self.device), self.depth * self.width))
-            self.counts += seg.reshape(self.depth, self.width)
-        else:
-            for r in range(self.depth):
-                self.counts[r] += np.bincount(idx[r], minlength=self.width)
+        for r in range(self.depth):
+            self._counts[r] += np.bincount(idx[r], minlength=self.width)
 
     # -------------------------------------------------------------- queries
     def estimate(self, keys: np.ndarray) -> np.ndarray:
         """Decayed event-count estimate per key (count-min: min over rows)."""
         if len(keys) == 0:
             return np.zeros(0, np.float64)
-        pol = self.policy
-        if pol is not None and pol.ready(len(keys)):
-            # the row hash runs in the kernel: the (depth, width) f64
-            # counters' 64-bit patterns, the row seeds and the keys go up
-            # in one copy; the u64 min of the patterns == the numeric min
-            # for non-negative doubles
-            nc = self.depth * self.width
-            col = to_device(np.concatenate([
-                self.counts.view(np.int64).ravel(),
-                self._seeds.view(np.int64),
-                np.asarray(keys, np.uint64).view(np.int64)]), self.device)
+        if self._dev is not None:
+            # the row hash runs in the kernel over the resident counters'
+            # 64-bit patterns; the u64 min of the patterns == the numeric
+            # min for non-negative doubles
+            self._apply_pending()
             (est,) = to_host(kernels.sketch_estimate(
-                col[:nc].view(self.depth, self.width),
-                col[nc + self.depth:], col[nc:nc + self.depth]))
+                self._dev.view(torch.int64), to_device(keys, self.device),
+                self._dseeds))
             return est.view(np.float64)
         idx = self._rows(keys)
-        est = self.counts[0][idx[0]]
+        est = self._counts[0][idx[0]]
         for r in range(1, self.depth):
-            est = np.minimum(est, self.counts[r][idx[r]])
+            est = np.minimum(est, self._counts[r][idx[r]])
         return est
 
     def total_mass(self) -> float:
-        """Total decayed event mass (row 0 — every row sums the same adds)."""
+        """Total decayed event mass (row 0 — every row sums the same adds);
+        NumPy's own sum on the host, for a resident sketch too."""
         return float(self.counts[0].sum())
 
     def active_slots(self) -> int:

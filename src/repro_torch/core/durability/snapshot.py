@@ -323,8 +323,8 @@ def restore_store(meta, arrays, io: SimIO | None = None, cls=None,
     ad = meta.get("adaptive")
     tracker = getattr(store.strategy, "tracker", None)
     if ad is not None and tracker is not None:
-        # fresh host arrays: the tracker uploads its counters per routed
-        # call and caches no device copy that could go stale here
+        # the sketches' setters upload resident counters to their device;
+        # the lifetime arrays stay host NumPy
         tracker.ops = ad["ops"]
         tracker.writes.counts = arrays["ad_wcounts"]
         tracker.writes.clock = ad["writes_clock"]

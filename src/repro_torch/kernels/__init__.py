@@ -5,7 +5,8 @@ beside its plain torch version.
 
 ``KERNELS`` lists the wrappers; each counts its launches in ``.launches``
 (``lookup_probe_segments`` on ``lookup_probe``, ``sketch_estimate`` on
-``gather_min64``: each is another form of that kernel).
+``gather_min64`` and ``sketch_add`` on ``segment_sum``: each is another
+form of that kernel; ``sketch_add`` also keeps its own count).
 The wrappers run the plain version for CPU tensors and the CUDA kernel for
 CUDA tensors (``common.library()`` builds it on first use).
 """
@@ -22,8 +23,8 @@ from .paged_gather import page_gather, page_gather_ref
 from .partition import hot_cold_partition, hot_cold_partition_ref
 from .run_coalesce import run_coalesce, run_coalesce_ref
 from .segment_reduce import (gather_min64, gather_min64_ref, segment_sum,
-                             segment_sum_ref, sketch_estimate,
-                             sketch_estimate_ref)
+                             segment_sum_ref, sketch_add, sketch_add_ref,
+                             sketch_estimate, sketch_estimate_ref)
 
 KERNELS = (lookup_probe, rank_probe, count_le, run_coalesce, segment_sum,
            gather_min64, gc_lookup, bloom_probe, merge_dedup,
@@ -37,5 +38,5 @@ __all__ = ["KERNELS", "bloom_build", "bloom_build_ref", "bloom_probe",
            "lookup_probe_segments", "lookup_probe_segments_ref",
            "merge_dedup", "merge_dedup_ref", "page_gather", "page_gather_ref",
            "rank_probe", "rank_probe_ref", "run_coalesce", "run_coalesce_ref",
-           "segment_sum", "segment_sum_ref", "sketch_estimate",
-           "sketch_estimate_ref"]
+           "segment_sum", "segment_sum_ref", "sketch_add", "sketch_add_ref",
+           "sketch_estimate", "sketch_estimate_ref"]

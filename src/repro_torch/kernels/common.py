@@ -113,6 +113,17 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
         device, copy=True)
 
 
+def to_device_async(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``to_device`` that, to a card, queues the copy from pinned memory
+    and returns without waiting for the card (nor for the work queued
+    before it); torch's pinned-memory allocator keeps the staging buffer
+    until the copy has run."""
+    t = torch.from_numpy(np.ascontiguousarray(a).view(np.int64))
+    if device.type != "cuda":
+        return t.to(device, copy=True)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def next_pow2(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
 
@@ -148,7 +159,7 @@ def build_library() -> Path:
     return so
 
 
-_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+_P, _I64, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 _SIGNATURES = {
     # name: argument types; every function returns its cudaError_t
     "rank_probe": (_P, _I64, _P, _I64, _P, _P, _P),
@@ -159,6 +170,8 @@ _SIGNATURES = {
     "count_le": (_P, _I64, _P, _I64, _P, _I64, _P, _P),
     "run_coalesce": (_P, _P, _I64, _I64, _P, _I64, _P, _P, _P, _P, _P),
     "segment_sum": (_P, _I64, _I64, _P, _P),
+    "sketch_add": (_P, _I64, _I64, _I64, _I64, _P, _I64, _P, _I64, _F64, _P,
+                   _P),
     "gather_min64": (_P, _I64, _I64, _P, _I64, _P, _P),
     "sketch_estimate": (_P, _I64, _I64, _I64, _I64, _P, _P, _I64, _P, _P),
     "gc_lookup": (_P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P),
@@ -180,7 +193,7 @@ def library() -> ctypes.CDLL:
     lib.scav_error_string.argtypes = [ctypes.c_int]
     lib.scav_error_string.restype = ctypes.c_char_p
     for name in ("scav_smem_sort_cap", "scav_partition_tile",
-                 "scav_probe_tile_words"):
+                 "scav_probe_tile_words", "scav_count_le_smem_files"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int64
     lib.scav_stream_sync.argtypes = [_P]
@@ -193,6 +206,14 @@ def smem_sort_cap() -> int:
     """Pairs ``run_coalesce`` sorts in one CTA's shared memory (the
     library's own constant); a longer column needs a scratch buffer."""
     return int(library().scav_smem_sort_cap())
+
+
+@functools.lru_cache(maxsize=None)
+def count_le_smem_files() -> int:
+    """The most files whose bounds ``count_le`` stages in shared memory
+    (the library's own constant); a larger level, like one of a few files,
+    is searched in device memory."""
+    return int(library().scav_count_le_smem_files())
 
 
 @functools.lru_cache(maxsize=None)

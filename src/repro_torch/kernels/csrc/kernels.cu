@@ -239,20 +239,84 @@ lookup_probe_kernel(const u64* __restrict__ keys, i64 nkeys,
 // file whose [min, max] covers q or -1: cnt - 1 when q <= maxs[cnt - 1],
 // else -1.
 //
-// Bound: latency; a level holds at most a few hundred files, so each
-// query's search is ~8 dependent loads of one L1/L2-resident line set.
-// Design: one thread per query; the interval check runs on the same
-// thread, so the level file assignment is one launch and no follow-up
-// elementwise passes.
+// Bound: latency; a level holds at most a few hundred files, so the bytes
+// (the queries, the bounds once, the outputs) take well under 0.1 us.
+// The first port ran one thread per query through ~log2(N) + 1 dependent
+// loads of the bounds in global memory (L1/L2 hits), most of its time at
+// 10,942 queries.  Design (kCountLeSmemMinFiles <= N <= kCountLeSmemFiles,
+// the main path): each
+// CTA stages the level's mins (and maxs) into shared memory with one
+// coalesced sweep, its queries' keys already in flight; each thread then
+// runs a branch-free upper_bound of ceil(log2 N) fixed steps over shared
+// memory (the same count on every lane, so no divergence) and reads
+// maxs[c-1] there too.  A query's only global traffic is its key and its
+// output.  Larger and smaller levels keep the global-memory search.  The
+// interval
+// check runs on the same thread, so the level file assignment is one
+// launch and no follow-up elementwise passes.
+constexpr i64 kCountLeSmemFiles = 2048;   // 32 KB of mins and maxs a CTA
+// below this many files the global-memory search, a load or two a query,
+// was faster than staging at 4 files and fewer (PERF.md §6)
+constexpr i64 kCountLeSmemMinFiles = 8;
+// global loads a thread issues before it uses the first of them (a loop
+// over a column would otherwise wait out one load's latency an element)
+constexpr int kLoadBatch = 8;
+
+// #{run <= q} over n >= 0 ascending words in shared memory, in
+// ceil(log2 n) steps whatever q is.  The window [base, base + len) holds
+// the answer's last step: every word before base is <= q, every word from
+// base + len on is > q; a step halves the window by one compare and a
+// select.
+__device__ __forceinline__ i64 upper_bound_fixed(const u64* run, i64 n,
+                                                 u64 q) {
+  if (n == 0) return 0;
+  const u64* base = run;
+  while (n > 1) {
+    const i64 half = n >> 1;
+    base = base[half] <= q ? base + half : base;
+    n -= half;
+  }
+  return (base - run) + (*base <= q ? 1 : 0);
+}
+
+template <bool kShared>
 __global__ void count_le_kernel(const u64* __restrict__ q, i64 nq,
                                 const u64* __restrict__ mins, i64 n,
                                 const u64* __restrict__ maxs, bool interval,
                                 i64* __restrict__ cnt) {
-  i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ u64 le_bounds[];   // mins [0, n), then maxs [n, 2n)
+  const i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  const u64 key = i < nq ? q[i] : 0ull;
+  if (kShared) {
+    for (i64 j0 = threadIdx.x; j0 < n;
+         j0 += (i64)blockDim.x * kLoadBatch) {
+      u64 lo[kLoadBatch], hi[kLoadBatch];
+#pragma unroll
+      for (int u = 0; u < kLoadBatch; ++u) {   // the loads, then the stores
+        const i64 j = j0 + (i64)u * blockDim.x;
+        if (j < n) {
+          lo[u] = mins[j];
+          if (interval) hi[u] = maxs[j];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadBatch; ++u) {
+        const i64 j = j0 + (i64)u * blockDim.x;
+        if (j < n) {
+          le_bounds[j] = lo[u];
+          if (interval) le_bounds[n + j] = hi[u];
+        }
+      }
+    }
+    __syncthreads();
+  }
   if (i >= nq) return;
-  u64 key = q[i];
-  i64 c = upper_bound(mins, n, key);
-  if (interval) c = (c > 0 && key <= maxs[c - 1]) ? c - 1 : -1;
+  i64 c = kShared ? upper_bound_fixed(le_bounds, n, key)
+                  : upper_bound(mins, n, key);
+  if (interval) {
+    const u64* hi = kShared ? le_bounds + n : maxs;
+    c = (c > 0 && key <= hi[c - 1]) ? c - 1 : -1;
+  }
   cnt[i] = c;
 }
 
@@ -616,6 +680,9 @@ mark_kernel(const u64* __restrict__ s, i64 m, i64 window,
 // kernel.py:47).  out[s] = #{i : ids[i] == s} for s in [0, n_slots); ids
 // outside that range (the reference masks with -1) are ignored.
 //
+// This index form carries the lifetime histogram's adds; the sketch's adds
+// take the key form, sketch_add, below.
+//
 // Bound: latency.  The adaptive tracker's batches are a few thousand ids
 // into a few thousand to 32K slots (64-256 KB), so the bytes bound is
 // well under a microsecond and one launch plus one memset set the time.
@@ -688,6 +755,68 @@ __global__ void gather_min64_kernel(const u64* __restrict__ bits, i64 d,
       if (r0 + c < d) best = v[c] < best ? v[c] : best;
   }
   out[i] = best;
+}
+
+// ---------------------------------------------------------------------------
+// sketch_add: segment_sum's key form (segment_sum_pallas, segment_reduce/
+// kernel.py:47, is what the reference's sketch adds reach).  Over a D x W
+// float64 count-min table on the card, row r's slot
+// splitmix64(key ^ seeds[r]) % W receives the number of keys that hash to
+// it as ONE float64 add of that integer total per touched slot: the exact
+// shape of the host's counts[r] += np.bincount(...), so the counters stay
+// bit-identical to it (untouched slots would gain + 0.0, a no-op on the
+// never-negative counters).  With `scaled` set, every counter is first
+// multiplied by `scale`, the decay factor the host computed (one IEEE
+// multiply, as its counts *= f).  __dmul_rn and __dadd_rn are never
+// contracted into a fused multiply-add, which would round once where the
+// host rounds twice.
+//
+// Bound: latency.  A batch of a few thousand keys into the store's 2 x 4,096
+// table moves ~100 KB (the keys, the counters read and written once), well
+// under a microsecond at HBM rate.  The first port hashed on the host,
+// uploaded a D*Q index column, zeroed and counted an int64 table (a memset
+// and a launch) and brought it back to add on the host, waiting for the
+// card.  Design: the counters live on the card, the keys go up and nothing
+// comes back.  The sketch owns a u32 scratch of D*W counts that starts and
+// ends zero, so no memset runs.  Two launches, each one thread per (key,
+// row) pair over the whole card: the first hashes (the modulo a FastMod
+// multiply) and atomicAdds the pair's slot in the scratch, its row-0
+// threads first multiplying the counters by the decay factor; the second
+// re-hashes and takes atomicExch(slot, 0), so the one thread that finds a
+// count adds it, once per slot.  Counting in one CTA's shared memory (then
+// one sweep of the counters) and in a cluster's distributed shared memory
+// were both slower at the store's shapes: the hash's 64-bit multiplies and
+// the counter sweep on one SM, or a cluster's launch and barriers, cost
+// more than a second launch (PERF.md §6).
+// The scratch path: key i of row blockIdx.y.  kFlush false counts into the
+// scratch (and, with n_scale > 0, the threads of row 0 first multiply
+// counters [0, n_scale) by scale); true takes each count back out and adds
+// it.
+template <bool kFlush>
+__global__ void sketch_scratch_kernel(double* __restrict__ counts, i64 w,
+                                      FastMod wm,
+                                      const u64* __restrict__ keys, i64 nq,
+                                      const u64* __restrict__ seeds,
+                                      u32* __restrict__ scratch, i64 n_scale,
+                                      double scale) {
+  const i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  if (!kFlush && blockIdx.y == 0 && i < n_scale)
+    counts[i] = __dmul_rn(counts[i], scale);
+  if (i >= nq) return;
+  const i64 r = blockIdx.y;
+  const i64 s = r * w + (i64)fast_mod(splitmix64(keys[i] ^ seeds[r]), wm);
+  if (!kFlush) {
+    atomicAdd(&scratch[s], 1u);
+    return;
+  }
+  const u32 c = atomicExch(&scratch[s], 0u);
+  if (c) counts[s] = __dadd_rn(counts[s], (double)c);
+}
+
+__global__ void sketch_scale_kernel(double* __restrict__ counts, i64 n,
+                                    double scale) {
+  const i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) counts[i] = __dmul_rn(counts[i], scale);
 }
 
 inline unsigned blocks_for(i64 n, int threads) {
@@ -975,12 +1104,25 @@ i64 scav_probe_tile_words() { return kTileWords; }
 // is read only then; an empty column may have a null pointer).
 int count_le(const void* q, i64 nq, const void* mins, i64 n, const void* maxs,
              i64 interval, void* cnt, void* stream) {
-  count_le_kernel<<<blocks_for(nq, kProbeThreads), kProbeThreads, 0,
-                    (cudaStream_t)stream>>>(
-      (const u64*)q, nq, (const u64*)mins, n, (const u64*)maxs,
-      interval != 0, (i64*)cnt);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n >= kCountLeSmemMinFiles && n <= kCountLeSmemFiles) {
+    const size_t smem = (size_t)n * sizeof(u64) * (interval ? 2 : 1);
+    count_le_kernel<true><<<blocks_for(nq, kProbeThreads), kProbeThreads,
+                            smem, st>>>(
+        (const u64*)q, nq, (const u64*)mins, n, (const u64*)maxs,
+        interval != 0, (i64*)cnt);
+  } else {
+    count_le_kernel<false><<<blocks_for(nq, kProbeThreads), kProbeThreads,
+                             0, st>>>(
+        (const u64*)q, nq, (const u64*)mins, n, (const u64*)maxs,
+        interval != 0, (i64*)cnt);
+  }
   return (int)cudaGetLastError();
 }
+
+// The most files whose bounds count_le stages in shared memory; a larger
+// level searches them in global memory.
+i64 scav_count_le_smem_files() { return kCountLeSmemFiles; }
 
 // mp: the power of two >= max(m, 2); scratch: mp u64 of device memory when
 // mp > kSmemSortCap, else unused.  m >= 1.
@@ -1012,6 +1154,37 @@ int run_coalesce(const void* rank, const void* pos, i64 m, i64 mp,
   }
   mark_kernel<<<1, kCoalesceThreads, 0, st>>>(
       s, m, window, (i64*)rank_s, (i64*)pos_s, (bool*)keep, (bool*)start);
+  return (int)cudaGetLastError();
+}
+
+// counts: d x w float64 (d, w >= 1); keys nq u64 patterns; seeds d;
+// (wm, wl): w's FastMod magic; scaled != 0: multiply every counter by
+// scale first; scratch: d * w zeroed u32 (left zero).
+int sketch_add(void* counts, i64 d, i64 w, i64 wm, i64 wl, const void* keys,
+               i64 nq, const void* seeds, i64 scaled, double scale,
+               void* scratch, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const FastMod m = {(u64)w, (u64)wm, wl};
+  const i64 n = d * w;
+  double* c = (double*)counts;
+  if (nq == 0 && !scaled) return 0;
+  if (nq == 0) {
+    sketch_scale_kernel<<<blocks_for(n, kProbeThreads), kProbeThreads, 0,
+                          st>>>(c, n, scale);
+    return (int)cudaGetLastError();
+  }
+  const i64 n_scale = scaled ? n : 0;   // the count launch scales first
+  const dim3 count_grid(blocks_for(nq > n_scale ? nq : n_scale,
+                                   kProbeThreads), (unsigned)d);
+  sketch_scratch_kernel<false><<<count_grid, kProbeThreads, 0, st>>>(
+      c, w, m, (const u64*)keys, nq, (const u64*)seeds, (u32*)scratch,
+      n_scale, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(blocks_for(nq, kProbeThreads), (unsigned)d);
+  sketch_scratch_kernel<true><<<grid, kProbeThreads, 0, st>>>(
+      c, w, m, (const u64*)keys, nq, (const u64*)seeds, (u32*)scratch, 0,
+      1.0);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 """Wrappers of the segment-reduce kernels (``csrc/kernels.cu``) that carry
-the adaptive tracker's sketch and lifetime-histogram updates and its
-count-min estimate (``sketch_estimate``: the row hash inside the
-``gather_min64`` kernel).
+the adaptive tracker's sketch adds (``sketch_add``: ``segment_sum``'s key
+form, the row hash and the add into the counters on the card), its
+lifetime-histogram adds (``segment_sum``) and its count-min estimate
+(``sketch_estimate``: the row hash inside the ``gather_min64`` kernel).
 
 CPU tensors run the plain torch version (``ref.py``); CUDA tensors launch
 the CUDA kernel, which adds one to the wrapper's ``launches``, or raise.
@@ -13,7 +14,8 @@ from __future__ import annotations
 import torch
 
 from ..common import check_columns, fast_mod_magic, launch, outputs
-from .ref import gather_min64_ref, segment_sum_ref, sketch_estimate_ref
+from .ref import (gather_min64_ref, segment_sum_ref, sketch_add_ref,
+                  sketch_estimate_ref)
 
 
 def segment_sum(ids: torch.Tensor, n_slots: int) -> torch.Tensor:
@@ -37,6 +39,61 @@ def segment_sum(ids: torch.Tensor, n_slots: int) -> torch.Tensor:
 
 
 segment_sum.launches = 0
+
+_MAX_ROWS = 65535       # the scratch path's grid rows
+
+
+def sketch_add(counts: torch.Tensor, keys: torch.Tensor, seeds: torch.Tensor,
+               *, scale: float | None = None,
+               scratch: torch.Tensor | None = None) -> None:
+    """The count-min sketch's add, in place: for every row r, slot
+    ``splitmix64(key ^ seeds[r]) % W`` of ``counts[r]`` receives the number
+    of keys that hash to it, as one float64 add of that integer total (the
+    host's ``counts[r] += np.bincount(...)``).  ``scale``: a decay factor
+    every counter is multiplied by first (one IEEE multiply, the host's
+    ``counts *= scale``); with no keys, the call only scales.
+
+    counts (D, W) float64; keys (Q,) and seeds (D,) int64 u64 patterns.
+    ``scratch``: on the card, a zeroed (D * W,) int32 tensor of counts that
+    the call leaves zero (one is made here when none is given).  Launches
+    count on ``segment_sum``, whose key form this is, and on
+    ``sketch_add``."""
+    dev = check_columns("sketch_add", keys, seeds)
+    if counts.dtype != torch.float64 or counts.dim() != 2 \
+            or not counts.is_contiguous() or counts.device != dev:
+        raise ValueError(f"sketch_add: want contiguous (D, W) float64 "
+                         f"counts on {dev}, got {counts.dtype} "
+                         f"{tuple(counts.shape)} on {counts.device}")
+    d, w = counts.shape
+    if not 1 <= d <= _MAX_ROWS or w < 1 or keys.dim() != 1 \
+            or tuple(seeds.shape) != (d,):
+        raise ValueError(f"sketch_add: want D in [1, {_MAX_ROWS}], W >= 1, "
+                         f"keys (Q,) and seeds (D,), got "
+                         f"{tuple(counts.shape)}, {tuple(keys.shape)} and "
+                         f"{tuple(seeds.shape)}")
+    if dev.type == "cpu":
+        sketch_add_ref(counts, keys, seeds, scale)
+        return
+    q = keys.shape[0]
+    if q == 0 and scale is None:
+        return
+    if q:
+        if scratch is None:
+            (scratch,) = outputs(d * w, dev, torch.int32)
+            scratch.zero_()
+        elif scratch.dtype != torch.int32 or scratch.numel() != d * w \
+                or not scratch.is_contiguous() or scratch.device != dev:
+            raise ValueError(f"sketch_add: want a contiguous ({d * w},) "
+                             f"int32 scratch on {dev}")
+    launch("sketch_add", dev, counts.data_ptr(), d, w, *fast_mod_magic(w),
+           keys.data_ptr(), q, seeds.data_ptr(), int(scale is not None),
+           1.0 if scale is None else float(scale),
+           None if scratch is None else scratch.data_ptr())
+    segment_sum.launches += 1
+    sketch_add.launches += 1
+
+
+sketch_add.launches = 0
 
 
 def gather_min64(bits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

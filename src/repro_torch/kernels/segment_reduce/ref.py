@@ -42,3 +42,19 @@ def sketch_estimate_ref(bits: torch.Tensor, keys: torch.Tensor,
     ``splitmix64(key ^ seeds[r]) % W`` (u64)."""
     cols = u64_mod(splitmix64(keys[:, None] ^ seeds[None, :]), bits.shape[1])
     return gather_min64_ref(bits, cols)
+
+
+def sketch_add_ref(counts: torch.Tensor, keys: torch.Tensor,
+                   seeds: torch.Tensor, scale: float | None = None) -> None:
+    """counts (D, W) float64, changed in place; keys (Q,) and seeds (D,)
+    int64 u64 patterns.  ``scale``: every counter times it first.  Then
+    per row, the keys' occurrence counts at ``splitmix64(key ^ seeds[r])
+    % W`` (u64), added as one float64 add per slot."""
+    if scale is not None:
+        counts.mul_(scale)
+    d, w = counts.shape
+    cols = u64_mod(splitmix64(keys[:, None] ^ seeds[None, :]), w)
+    for r in range(d):
+        cnt = torch.zeros(w, dtype=torch.int64, device=counts.device)
+        cnt.index_add_(0, cols[:, r], torch.ones_like(cols[:, r]))
+        counts[r] += cnt.to(torch.float64)

@@ -128,6 +128,72 @@ def test_sketch_decay_is_monotone(keys, half_life, steps):
         prev = cur
 
 
+@pytest.mark.parametrize("width,depth,half_life", [
+    (1, 1, 50.0), (64, 2, 100.0), (4096, 2, 5000.0), (97, 4, None),
+    (4097, 5, 700.0)])
+def test_resident_sketch_matches_reference(width, depth, half_life):
+    """A resident sketch (counters a CPU tensor, kernels on) against the
+    reference's host sketch over a seeded stream of interleaved decays
+    (runs of them, so factors wait and are applied one at a time), adds,
+    estimates, total masses and active-slot counts: bit-identical."""
+    ref = RA.DecaySketch(width, depth, half_life, seed=13)
+    port = TA.DecaySketch(width, depth, half_life, seed=13,
+                          policy=tacc.KernelPolicy(True, 1), device=CPU)
+    assert port._dev is not None            # resident
+    rng = np.random.default_rng(width * 7 + depth)
+    clock = 0.0
+    for _ in range(60):
+        op = rng.choice(["decay", "decay", "add", "estimate", "sums"])
+        if op == "decay":
+            clock += float(rng.integers(1, 500)) * rng.random()
+            ref.decay_to(clock)
+            port.decay_to(clock)
+        elif op == "add":
+            keys = rng.integers(0, 3000, rng.integers(1, 900)) \
+                .astype(np.uint64)
+            if rng.random() < 0.3:
+                keys[:] = keys[0]           # all equal
+            ref.add(keys)
+            port.add(keys)
+        elif op == "estimate":
+            q = rng.integers(0, 4000, rng.integers(1, 400)).astype(np.uint64)
+            assert_array_equal(bits(port.estimate(q)), bits(ref.estimate(q)))
+        else:
+            assert port.total_mass() == ref.total_mass()
+            assert port.active_slots() == ref.active_slots()
+    assert_array_equal(bits(port.counts), bits(ref.counts))
+
+
+def test_resident_add_brings_nothing_back(monkeypatch):
+    """A resident sketch's decay and add make no host copy and call no
+    download; ``counts`` is a read-only copy until the next change, and
+    assigning it uploads."""
+    import repro_torch.core.adaptive.sketch as sk_mod
+    sk = TA.DecaySketch(256, 2, 100.0, policy=tacc.KernelPolicy(True, 1),
+                        device=CPU)
+    keys = np.arange(500, dtype=np.uint64)
+
+    def refuse(*a):
+        raise AssertionError("a resident add brought data back")
+    monkeypatch.setattr(sk_mod, "to_host", refuse)
+    sk.decay_to(10.0)
+    sk.add(keys)
+    sk.decay_to(20.0)
+    sk.add(keys)
+    assert sk._counts is None
+    monkeypatch.undo()
+    host = sk.counts
+    assert not host.flags.writeable and sk.counts is host
+    with pytest.raises(ValueError):
+        host[0, 0] = 1.0
+    new = np.full((2, 256), 3.0)
+    sk.counts = new
+    new[:] = 0.0                            # the sketch holds its own copy
+    assert (sk.estimate(keys) == 3.0).all()
+    with pytest.raises(ValueError):
+        sk.counts = np.zeros((3, 256))
+
+
 def test_sketch_rejects_bad_shape():
     for w, d in ((0, 1), (16, 0)):
         with pytest.raises(ValueError):
@@ -304,14 +370,16 @@ def test_zipf_update_stream_matches_reference(adaptive, use_kernels):
 
 def test_adaptive_kernels_reached_on_the_store_path(monkeypatch):
     """With routing on, the adaptive store calls both segment-reduce ops
-    (their plain versions, on the CPU); the estimate goes through
-    ``gather_min64``'s key form, ``sketch_estimate``."""
+    (their plain versions, on the CPU): the sketch adds through
+    ``segment_sum``'s key form, ``sketch_add``, the lifetime histogram's
+    through its index form, and the estimate through ``gather_min64``'s
+    key form, ``sketch_estimate``."""
     from repro_torch import kernels
     calls = {}
-    for name in ("segment_sum", "sketch_estimate"):
+    for name in ("segment_sum", "sketch_add", "sketch_estimate"):
         def spy(*a, _f=getattr(kernels, name), _n=name, **k):
             calls[_n] = calls.get(_n, 0) + 1
             return _f(*a, **k)
         monkeypatch.setattr(kernels, name, spy)
     replay(T, "scavenger_adaptive", device=CPU, kernel_min_batch=1)
-    assert set(calls) == {"segment_sum", "sketch_estimate"}
+    assert set(calls) == {"segment_sum", "sketch_add", "sketch_estimate"}

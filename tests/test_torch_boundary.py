@@ -184,21 +184,23 @@ def mocked_library(monkeypatch):
         monkeypatch.setattr(probe_ops, name, plain)
     monkeypatch.setattr(coalesce_ops, "run_coalesce_ref", plain)
     for name in ("segment_sum_ref", "gather_min64_ref",
-                 "sketch_estimate_ref"):
+                 "sketch_estimate_ref", "sketch_add_ref"):
         monkeypatch.setattr(segment_ops, name, plain)
     for name, (mod, _) in OFFPATH.items():
         monkeypatch.setattr(mod, f"{name}_ref", plain)
     for fn in (probe_ops.rank_probe, probe_ops.lookup_probe,
                probe_ops.count_le, coalesce_ops.run_coalesce,
                segment_ops.segment_sum, segment_ops.gather_min64,
+               segment_ops.sketch_add,
                *(getattr(mod, name) for name, (mod, _) in OFFPATH.items())):
         monkeypatch.setattr(fn, "launches", 0)
     return launched
 
 
-# the level form of lookup_probe and the key form of gather_min64, which
-# the store calls: wrapper -> (module, the library function it launches,
-# the wrapper whose count it adds to, CUDA-looking operands)
+# the level form of lookup_probe and the key forms of gather_min64 and
+# segment_sum, which the store calls: wrapper -> (module, the library
+# function it launches, the wrapper whose count it adds to, CUDA-looking
+# operands)
 FORMS = {
     "lookup_probe_segments": (probe_ops, "lookup_probe_level",
                               "lookup_probe", lambda: (
@@ -211,6 +213,10 @@ FORMS = {
                         lambda: (_cuda_looking(np.zeros((2, 5))),
                                  _cuda_looking([3, 1, 2]),
                                  _cuda_looking([7, 8]))),
+    "sketch_add": (segment_ops, "sketch_add", "segment_sum",
+                   lambda: (_cuda_looking(np.zeros((2, 5)), np.float64),
+                            _cuda_looking([3, 1, 2]),
+                            _cuda_looking([7, 8]))),
 }
 
 

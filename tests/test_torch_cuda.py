@@ -225,6 +225,139 @@ def test_sketch_estimate_matches_plain(cuda, width, depth):
     assert (got.cpu().numpy().view(np.uint64) == want).all()
 
 
+def _bits64(t):
+    return t.cpu().view(torch.int64)
+
+
+# (depth, width, keys): one key, the store's sketch, widths not a power of
+# two, more keys than slots, tables of 2^18 slots and just past
+SKETCH_ADD_CASES = {"d1_w1": (1, 1, 300), "d2_w3": (2, 3, 1),
+                    "store": (2, 4096, 4096), "d3_w4097": (3, 4097, 5000),
+                    "d5_w1000": (5, 1000, 20000), "wide": (2, 131072, 4096),
+                    "wider": (1, 262145, 4096), "d4_w70000": (4, 70000, 3000)}
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("keys_kind", ["uniform", "equal", "top_bit"])
+@pytest.mark.parametrize("case", sorted(SKETCH_ADD_CASES))
+def test_sketch_add_matches_plain(cuda, case, keys_kind, scaled):
+    """Decayed fractional counters; every counter bit-identical to the
+    plain version's; the scratch is zero again after the call."""
+    from repro_torch.core.engine.keys import splitmix64
+    d, w, q = SKETCH_ADD_CASES[case]
+    rng = np.random.default_rng(d * 1000 + q)
+    vals = rng.random((d, w)) * 1e3
+    vals[rng.random((d, w)) < 0.3] = 0.0
+    keys = rng.integers(0, 2**64 - 1, q, dtype=np.uint64, endpoint=True)
+    if keys_kind == "equal":
+        keys[:] = keys[0]
+    elif keys_kind == "top_bit":
+        keys |= np.uint64(1 << 63)
+    seeds = splitmix64(np.uint64(3) + np.arange(1, d + 1, dtype=np.uint64))
+    scale = 0.5 ** (37.0 / 1000.0) if scaled else None
+    kt, st = _col(keys, cuda), _col(seeds, cuda)
+    got = torch.from_numpy(vals.copy()).to(cuda)
+    want = got.clone()
+    scratch = torch.zeros(d * w, dtype=torch.int32, device=cuda)
+    n0 = K.segment_sum.launches, K.sketch_add.launches
+    K.sketch_add(got, kt, st, scale=scale, scratch=scratch)
+    assert (K.segment_sum.launches, K.sketch_add.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    K.sketch_add_ref(want, kt, st, scale)
+    assert torch.equal(_bits64(got), _bits64(want))
+    assert not scratch.any()
+    # the host's own arithmetic: counts * f, then + bincount per row
+    idx = (splitmix64(keys[None, :] ^ seeds[:, None])
+           % np.uint64(w)).astype(np.int64)
+    host = vals * scale if scaled else vals.copy()
+    for r in range(d):
+        host[r] += np.bincount(idx[r], minlength=w)
+    assert (got.cpu().numpy().view(np.int64) == host.view(np.int64)).all()
+
+
+def test_sketch_add_scale_only(cuda):
+    vals = np.random.default_rng(1).random((2, 4096)) * 9.0
+    got = torch.from_numpy(vals.copy()).to(cuda)
+    keys = torch.zeros(0, dtype=torch.int64, device=cuda)
+    seeds = torch.zeros(2, dtype=torch.int64, device=cuda)
+    n0 = K.sketch_add.launches
+    K.sketch_add(got, keys, seeds)           # nothing to do: no launch
+    assert K.sketch_add.launches == n0
+    K.sketch_add(got, keys, seeds, scale=0.7)
+    assert K.sketch_add.launches == n0 + 1
+    assert (got.cpu().numpy().view(np.int64)
+            == (vals * 0.7).view(np.int64)).all()
+
+
+def test_resident_sketch_on_card_matches_host_and_does_not_wait(cuda):
+    """A resident sketch on the card against the port's host sketch over
+    decays, adds and estimates, bit for bit; an add returns while the card
+    is still busy (it waits for nothing)."""
+    from repro_torch.core.accel import KernelPolicy
+    from repro_torch.core.adaptive.sketch import DecaySketch
+    host = DecaySketch(4096, 2, 5000.0, seed=5)
+    dev = DecaySketch(4096, 2, 5000.0, seed=5,
+                      policy=KernelPolicy(True, 1000), device=cuda)
+    assert dev._dev.is_cuda
+    rng = np.random.default_rng(8)
+    for i in range(20):
+        keys = rng.integers(0, 1 << 40, int(rng.integers(1, 5000)),
+                            dtype=np.uint64)
+        for sk in (host, dev):
+            sk.decay_to(float(i * 700))
+            sk.add(keys)
+        if i % 5 == 4:
+            assert (dev.estimate(keys).view(np.int64)
+                    == host.estimate(keys).view(np.int64)).all()
+            assert dev.total_mass() == host.total_mass()
+            assert dev.active_slots() == host.active_slots()
+    assert (dev.counts.view(np.int64) == host.counts.view(np.int64)).all()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)           # ~0.1 s of spinning
+    dev.decay_to(1e6)
+    dev.add(np.arange(4096, dtype=np.uint64))
+    assert not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("interval", [False, True])
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 95, "cap", "cap+1"])
+def test_count_le_at_the_shared_memory_cap(cuda, n, interval):
+    """count_le and interval_rank with the level's bounds in shared memory
+    (8 files up to the cap) and in device memory (fewer, or past the cap);
+    queries equal to every min and max, just either side of them, and at
+    0 and 2^64 - 1."""
+    from repro_torch.kernels.common import count_le_smem_files
+    if isinstance(n, str):
+        n = count_le_smem_files() + (n == "cap+1")
+    rng = np.random.default_rng(n)
+    edges = np.unique(rng.integers(1, 2**64 - 2, 2 * n, dtype=np.uint64))
+    while len(edges) < 2 * n:
+        edges = np.unique(np.concatenate([edges, rng.integers(
+            1, 2**64 - 2, 2 * n, dtype=np.uint64)]))
+    edges = edges[:2 * n]
+    mins, maxs = edges[0::2], edges[1::2]
+    maxs[: n // 3] = mins[: n // 3]          # some one-key intervals
+    qs = np.concatenate([mins, maxs, mins - np.uint64(1),
+                         maxs + np.uint64(1),
+                         np.array([0, 2**63, 2**64 - 1], np.uint64),
+                         rng.integers(0, 2**64 - 1, 10942, dtype=np.uint64,
+                                      endpoint=True)])
+    qt, mt, xt = _col(qs, cuda), _col(mins, cuda), _col(maxs, cuda)
+    if interval:
+        got, want = K.interval_rank(qt, mt, xt), \
+            K.interval_rank_ref(qt, mt, xt)
+    else:
+        got, want = K.count_le(qt, mt), K.count_le_ref(qt, mt)
+    _equal((got,), (want,))
+    cnt = np.searchsorted(mins, qs, side="right")
+    if interval:
+        ok = (cnt > 0) & (qs <= maxs[np.maximum(cnt - 1, 0)]) if n else \
+            np.zeros(len(qs), bool)
+        cnt = np.where(ok, cnt - 1, -1)
+    assert (got.cpu().numpy() == cnt).all()
+
+
 def test_durable_adaptive_store_opens_on_card(cuda, tmp_path):
     """A durable scavenger_adaptive store on the card recovers on the card
     (``Store.open(..., device="cuda")``) to the CPU store's state."""

@@ -8,6 +8,9 @@
 * Torn MANIFEST and WAL tails, the MANIFEST round trip, WAL prefix
   replay, a recovered store staying durable, and durability costing zero
   simulated time, as in the reference's tests.
+* A tracker whose sketches keep their counters on the device writes the
+  same tracker records, byte for byte, as one whose sketches are host
+  NumPy, and restores resident.
 * Across packages: a directory the reference wrote opens in the port and
   continues byte-identically to the reference continuing it, and the
   other way round, for ``scavenger_adaptive`` (tracker arrays compared
@@ -30,10 +33,14 @@ from _hypothesis_support import HealthCheck, given, settings, st
 
 import repro.core as R
 import repro_torch.core as T
+import repro_torch.core.adaptive as TA
+from repro_torch.core.adaptive.tracker import _READS_SEED, _WRITES_SEED
 from repro_torch.core.durability import (CRASH_POINTS, Durability,
                                          ManifestWriter, VersionEdit,
                                          read_manifest, read_wal,
                                          replay_into)
+from repro_torch.core.durability.records import scan_records
+from repro_torch.core.durability.snapshot import read_snapshot
 from repro_torch.core.durability.wal import WalWriter
 
 N_KEYS = 4096
@@ -172,6 +179,60 @@ def test_checkpoint_roundtrip_standalone_file(engine, tmp_path):
         for a, b in ((rt.writes.counts, tracker.writes.counts),
                      (rt.lifetime.hist, tracker.lifetime.hist)):
             assert (a.view(np.int64) == b.view(np.int64)).all()
+
+
+def _tracker_records(path) -> tuple:
+    """A snapshot's tracker records: the adaptive meta, and the raw bytes
+    of every ``ad_*`` array record."""
+    meta, arrays = read_snapshot(path)
+    raw = {key: payload for _, key, payload in scan_records(path)
+           if key.startswith(b"a:ad_")}
+    return meta["adaptive"], raw, arrays
+
+
+def test_resident_tracker_snapshot_bytes_equal_host_tracker(tmp_path):
+    """With kernels on, a tracker's sketches keep their counters on the
+    store's device (a CPU tensor here); a twin store whose sketches are
+    host NumPy, fed the same ops, writes byte-identical tracker records;
+    the resident store's snapshot restores resident sketches holding the
+    same bits, and both continue alike."""
+    cfg = _cfg(T, "scavenger_adaptive")
+    assert cfg.use_kernels
+    resident = T.Store(cfg, device=CPU)
+    twin = T.Store(cfg, device=CPU)
+    tr = twin.strategy.tracker
+    tr.writes = TA.DecaySketch(tr.writes.width, tr.writes.depth,
+                               tr.writes.half_life, seed=_WRITES_SEED)
+    tr.reads = TA.DecaySketch(tr.reads.width, tr.reads.depth,
+                              tr.reads.half_life, seed=_READS_SEED)
+    assert resident.strategy.tracker.writes._dev is not None
+    assert tr.writes._dev is None
+    ops = _ops(6)
+    for op in ops[:12]:
+        _apply(T, resident, op)
+        _apply(T, twin, op)
+    a = resident.checkpoint(tmp_path / "resident.ckpt")
+    b = twin.checkpoint(tmp_path / "twin.ckpt")
+    ad_a, raw_a, arr_a = _tracker_records(a)
+    ad_b, raw_b, _ = _tracker_records(b)
+    assert ad_a["ops"] == ad_b["ops"] > 0
+    assert {k: ad_a[k] for k in ("writes_clock", "reads_clock")} \
+        == {k: ad_b[k] for k in ("writes_clock", "reads_clock")}
+    assert raw_a == raw_b and len(raw_a) == 4
+    assert arr_a["ad_wcounts"].any() and arr_a["ad_rcounts"].any()
+    restored = T.Store.open(a, device=CPU)
+    rt = restored.strategy.tracker
+    assert rt.writes._dev is not None and rt.reads._dev is not None
+    for got, want in ((rt.writes.counts, arr_a["ad_wcounts"]),
+                      (rt.reads.counts, arr_a["ad_rcounts"])):
+        assert (got.view(np.int64) == want.view(np.int64)).all()
+    for op in ops[12:]:
+        _apply(T, restored, op)
+        _apply(T, twin, op)
+    assert restored.stats() == twin.stats()
+    for got, want in ((rt.writes.counts, tr.writes.counts),
+                      (rt.reads.counts, tr.reads.counts)):
+        assert (got.view(np.int64) == want.view(np.int64)).all()
 
 
 def test_refusing_to_recreate_existing_dir(tmp_path):

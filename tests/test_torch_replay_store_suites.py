@@ -1,17 +1,20 @@
 """The reference's store suites, replayed on the port on the CPU.
 
-Five test modules of the reference package (``test_batch_api``,
-``test_engine_units``, ``test_engines_registry``, ``test_store_property``
-and ``test_kernel_route``) are loaded afresh from their files under new
-module names, with every ``repro.X`` import they make bound to the same
-name in ``repro_torch.X``.  The redirect sits in the fresh module's own
-``__import__``, so it covers the imports inside test bodies too; the
-reference's modules themselves stay untouched and keep testing ``repro``.
-``Store`` binds to a subclass of the port's ``Store`` that runs on the
-CPU (the port's default device is CUDA).  A module the port does not have
-yet binds the reference's (``repro.workloads``, whose ``Runner`` only
-drives the store under test through its public calls); a name the port's
-module lacks binds ``None``.
+Six test modules of the reference package (``test_batch_api``,
+``test_engine_units``, ``test_engines_registry``, ``test_store_property``,
+``test_kernel_route`` and ``test_adaptive``) are loaded afresh from their
+files under new module names, with every ``repro.X`` import they make
+bound to the same name in ``repro_torch.X``.  The redirect sits in the
+fresh module's own ``__import__``, so it covers the imports inside test
+bodies too; the reference's modules themselves stay untouched and keep
+testing ``repro``.  ``Store`` binds to a subclass of the port's ``Store``
+that runs on the CPU (the port's default device is CUDA), and
+``AccessTracker`` to one whose trackers route on the CPU.  A sibling test
+module a suite imports helpers from (``test_refactor_parity``'s fixed
+workload) is loaded the same way, so its helpers drive the port too.  A
+module the port does not have yet binds the reference's
+(``repro.workloads``, whose ``Runner`` only drives the store under test
+through its public calls); a name the port's module lacks binds ``None``.
 
 Each test function is exposed here as ``test_<suite>__<name>`` with its
 parametrisation and hypothesis decorators, so each case runs once, against
@@ -31,9 +34,12 @@ import types
 from pathlib import Path
 
 import repro_torch.core as T
+import repro_torch.core.adaptive as TA
 
 SUITES = ("test_batch_api", "test_engine_units", "test_engines_registry",
-          "test_store_property", "test_kernel_route")
+          "test_store_property", "test_kernel_route", "test_adaptive")
+# sibling test modules whose helpers a suite imports
+HELPERS = ("test_refactor_parity",)
 LEFT_OUT = {
     # the recording observer is not ported yet (ROADMAP §1 item 3)
     "test_kernel_route": ("test_kernel_us_histograms_reach_observer",),
@@ -54,6 +60,25 @@ class CpuStore(T.Store):
         return super().open(path, *args, **kwargs)
 
 
+class CpuAccessTracker(TA.AccessTracker):
+    """The port's ``AccessTracker`` routing on the CPU (kernels on: its
+    sketches' counters are CPU tensors, its kernels the plain versions)."""
+
+    __slots__ = ()
+
+    def __init__(self, *args, **kwargs):
+        kwargs.setdefault("device", "cpu")
+        super().__init__(*args, **kwargs)
+
+    @classmethod
+    def from_config(cls, cfg, device="cpu") -> "CpuAccessTracker":
+        return super().from_config(cfg, device)
+
+
+BOUND = {"Store": CpuStore, "AccessTracker": CpuAccessTracker}
+_HELPER_MODULES: dict[str, types.ModuleType] = {}
+
+
 def _port_module(name: str) -> types.ModuleType:
     """``repro_torch.X`` for ``repro.X``; the reference's module where the
     port has none yet."""
@@ -67,6 +92,10 @@ def _port_module(name: str) -> types.ModuleType:
 
 
 def _port_import(name, globals=None, locals=None, fromlist=(), level=0):
+    if not level and name in HELPERS:
+        if name not in _HELPER_MODULES:
+            _HELPER_MODULES[name] = _load(name)
+        return _HELPER_MODULES[name]
     if level or not (name == "repro" or name.startswith("repro.")):
         return builtins.__import__(name, globals, locals, fromlist, level)
     if not fromlist:
@@ -75,8 +104,8 @@ def _port_import(name, globals=None, locals=None, fromlist=(), level=0):
     mod = _port_module(name)
     bound = types.ModuleType(mod.__name__)
     for attr in fromlist:
-        if attr == "Store":
-            value = CpuStore
+        if attr in BOUND:
+            value = BOUND[attr]
         elif hasattr(mod, attr):
             value = getattr(mod, attr)
         else:       # a submodule, or a name the port does not have yet
@@ -108,9 +137,12 @@ del _suite, _module, _name, _fn
 
 def test_replayed_suites_bind_the_port():
     """Every class, function and module a suite took from ``repro`` is the
-    port's (``repro.workloads`` aside), and ``Store`` is the CPU store."""
-    for suite, module in MODULES.items():
-        assert getattr(module, "Store", CpuStore) is CpuStore
+    port's (``repro.workloads`` aside), ``Store`` is the CPU store and
+    ``AccessTracker`` the CPU tracker, and a helper module's functions
+    drive the port as well."""
+    for suite, module in {**MODULES, **_HELPER_MODULES}.items():
+        for name, value in BOUND.items():
+            assert getattr(module, name, value) is value
         for name, value in vars(module).items():
             origin = getattr(value, "__module__", None) or \
                 (value.__name__ if isinstance(value, types.ModuleType)
@@ -118,5 +150,7 @@ def test_replayed_suites_bind_the_port():
             if origin.startswith("repro.") and \
                     not origin.startswith("repro.workloads"):
                 raise AssertionError(f"{suite}.{name} is {origin}'s")
+    assert MODULES["test_adaptive"].run_fixed_workload is \
+        _HELPER_MODULES["test_refactor_parity"].run_fixed_workload
     assert MODULES["test_engines_registry"].engreg._REGISTRY is \
         importlib.import_module("repro_torch.core.engines.registry")._REGISTRY

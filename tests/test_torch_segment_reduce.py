@@ -5,8 +5,11 @@ plain torch versions on CPU tensors; the same NumPy-seeded inputs go
 through the reference's ops in ``xla`` mode (its jitted ``ref.py``
 oracle) at the shapes of ``tests/test_kernels.py``.  Outputs must be equal
 exactly: counts as integers, estimates as 64-bit patterns (the reference
-returns them as (hi, lo) u32 planes).  The CUDA kernels run only on the
-card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
+returns them as (hi, lo) u32 planes).  ``sketch_add``, ``segment_sum``'s
+key form, is held bit for bit against the reference's ``DecaySketch``
+(decay, then a host add) and against its ``segment_sum`` on the same
+host-hashed ids.  The CUDA kernels run only on the card
+(``chip_smoke.py``, ``tests/test_torch_cuda.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from numpy.testing import assert_array_equal
 from _hypothesis_support import given, settings, st
 
 from repro import kernels as R
+from repro.core.adaptive import DecaySketch as RefSketch
 from repro_torch import kernels as T
 
 
@@ -118,6 +122,85 @@ def test_gather_min64_property(vals_flat):
     got = _port_min64(vals, idx)
     assert_array_equal(got, _ref_min64(vals, idx))
     assert_array_equal(got.view(np.float64), np.minimum(vals[0], vals[1]))
+
+
+# ------------------------------------------------------------- sketch_add
+def _col(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.uint64)
+                            .view(np.int64).copy())
+
+
+def _sketch_keys(kind: str, rng, q: int) -> np.ndarray:
+    if kind == "equal":                     # every key in one slot a row
+        return np.full(q, 0xDEADBEEF, np.uint64)
+    keys = rng.integers(0, 2**64 - 1, q, dtype=np.uint64, endpoint=True)
+    if kind == "top_bit":                   # u64 patterns >= 2^63
+        keys |= np.uint64(1 << 63)
+    keys[:2] = [2**63, 2**64 - 1]
+    return keys
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("width", [1, 3, 4096, 4097])
+def test_sketch_add_matches_reference(width, depth):
+    """Decayed, fractional counters: ``sketch_add(scale=f)`` equals the
+    reference sketch's ``decay_to`` then ``add`` bit for bit, and the
+    reference's ``segment_sum`` on the same host-hashed ids, added once a
+    slot after the decay."""
+    rng = np.random.default_rng(width * 10 + depth)
+    kind = ("uniform", "equal", "top_bit")[(width + depth) % 3]
+    keys = _sketch_keys(kind, rng, 700)
+    ref = RefSketch(width, depth, half_life=300.0, seed=width + depth)
+    start = rng.random((depth, width)) * 100.0
+    start[rng.random((depth, width)) < 0.3] = 0.0
+    ref.counts[:] = start
+    ref.decay_to(117.0)
+    ref.add(keys)
+    scale = 0.5 ** (117.0 / 300.0)          # the reference's decay factor
+    got = torch.from_numpy(start.copy())
+    T.sketch_add(got, _col(keys), _col(ref._seeds), scale=scale)
+    assert_array_equal(got.numpy().view(np.int64), ref.counts.view(np.int64))
+    ids = (ref._rows(keys) + np.arange(depth)[:, None] * width).ravel()
+    seg = R.segment_sum(ids, depth * width, mode="xla").reshape(depth, width)
+    want = start * scale + seg
+    assert_array_equal(got.numpy().view(np.int64), want.view(np.int64))
+
+
+@pytest.mark.parametrize("case", ["no_keys_scales", "no_keys_no_scale",
+                                  "unit_counts"])
+def test_sketch_add_edges(case):
+    rng = np.random.default_rng(3)
+    ref = RefSketch(50, 2, half_life=None, seed=5)
+    start = rng.random((2, 50)) * 7.0
+    got = torch.from_numpy(start.copy())
+    seeds = _col(ref._seeds)
+    if case == "unit_counts":               # integer counters stay exact
+        keys = _sketch_keys("uniform", rng, 300)
+        T.sketch_add(got, _col(keys), seeds)
+        ref.counts[:] = start
+        ref.add(keys)
+        want = ref.counts
+    else:
+        scale = 0.25 if case == "no_keys_scales" else None
+        T.sketch_add(got, _col(np.zeros(0, np.uint64)), seeds, scale=scale)
+        want = start * (0.25 if scale else 1.0)
+    assert_array_equal(got.numpy().view(np.int64), want.view(np.int64))
+
+
+def test_sketch_add_rejects_bad_operands():
+    counts = torch.zeros((2, 8), dtype=torch.float64)
+    keys = torch.zeros(5, dtype=torch.int64)
+    seeds = torch.zeros(2, dtype=torch.int64)
+    with pytest.raises(ValueError, match="float64"):
+        T.sketch_add(counts.float(), keys, seeds)
+    with pytest.raises(ValueError, match="float64"):
+        T.sketch_add(counts.t(), keys, torch.zeros(8, dtype=torch.int64))
+    with pytest.raises(ValueError, match="seeds"):
+        T.sketch_add(counts, keys, torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(ValueError, match="int64"):
+        T.sketch_add(counts, keys.int(), seeds)
+    with pytest.raises(ValueError, match="W >= 1"):
+        T.sketch_add(torch.zeros((2, 0), dtype=torch.float64), keys, seeds)
 
 
 # ----------------------------------------------------- operand validation
