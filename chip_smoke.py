@@ -27,14 +27,22 @@ Phases, each of which raises on failure (exit code != 0):
              keys, keys >= 2^63, with and without a decay factor, its
              scratch zero after each call; ``count_le`` and
              ``interval_rank`` at N 1, 2, 7, 8, 95, the shared-memory cap
-             and one past it, queries equal to the bounds; outputs (the counters'
-             bit patterns) must be equal exactly;
+             and one past it, queries equal to the bounds; ``rank_probe``'s
+             run form either side of its staging threshold, at the
+             whole-run staging cap and past it, staged and not, and its
+             segmented form with empty runs and segments, one-key runs,
+             one multi_get's vSST finds (400 runs of 2,600 keys), 1,200
+             segments and a segment past one tile, at four tile and
+             stride choices; outputs (the counters' bit patterns) must be
+             equal exactly;
 2b. bench  — the five kernels the store never routes to (``gc_lookup``,
              ``bloom_probe``, ``merge_dedup``, ``hot_cold_partition``,
              ``page_gather``) against their plain versions at the reference
              tests' shapes, the edges (empty, one, ragged tiles, all and no
              hot records, runs sharing every key, keys at 0xFFFFFFFD and the
-             reference's pad values) and the ``deploy`` shapes of
+             reference's pad values, merges ending either side of a merge
+             tile and a key's two copies split by one) and the ``deploy``
+             shapes of
              ``repro_torch.bench.kernels`` (the 1 GiB store's state): integer
              outputs equal exactly, pages bit for bit.  Then the kernel
              benchmark itself, ``repro_torch.bench.kernels.run("cuda",
@@ -48,13 +56,15 @@ Phases, each of which raises on failure (exit code != 0):
              of 10, every acknowledged write read back and checked against
              the vids ``Store.write`` returned.  The four probe and fetch
              kernels' launch counts are zeroed just before and read just
-             after; each must be > 0; the table probes that took the host
-             path are counted beside them;
+             after; each must be > 0, and so must ``rank_probe``'s two
+             forms' (the memtable probes and the vSST finds); the table
+             probes that took the host path are counted beside them;
 4. crossover — on the main run's store, the wall time of one routed call
              (upload, kernel, download) against the host NumPy path it
              replaces, per op and batch size: where routing starts to pay
              (``EngineConfig.kernel_min_batch``), for the four probe and
-             fetch ops and the access tracker's three;
+             fetch ops, a multi_get's vSST finds in one call against the
+             host loop over its vSSTs, and the access tracker's three;
 5. adaptive — one durable ``scavenger_adaptive`` Store on the card at the
              same 1 GiB scale: load 2^20 keys, one update pass of 2^20
              Zipf(0.99) ops with a checkpoint halfway and a crash injected
@@ -70,7 +80,8 @@ Phases, each of which raises on failure (exit code != 0):
              events beside its plain version, a PyTorch library call and
              its bound (``segment_sum`` in its key form, the largest
              sketch add); ``segment_sum``'s index form (the lifetime
-             histogram's largest add), ``lookup_probe``'s table form (at
+             histogram's largest add), ``rank_probe``'s segmented form (at
+             the largest vSST-find call), ``lookup_probe``'s table form (at
              the largest call's largest table) and ``gather_min64``'s
              index form (on the largest estimate, a form the main path no
              longer makes) are recorded on their own line;
@@ -95,15 +106,22 @@ from 64 to 8,192 beside ``torch.sort``, one level's table probes as the
 store makes them (one level probe, or one launch a table on trees before
 it) with the level form's tile and stride choices, the routed sketch
 estimate, the routed sketch add at 4,096 and 1,024 keys, a routed
-``AccessTracker.observe_writes`` of 4,096 keys and ``interval_rank`` at
-10,942 queries over 1 to 2,048 files, each as that tree makes it.
+``AccessTracker.observe_writes`` of 4,096 keys, ``interval_rank`` at
+10,942 queries over 1 to 2,048 files, ``rank_probe``'s run form at
+10,096 queries over runs of 1 to 20,000 keys (staged and not), a
+multi_get's vSST finds at 128 to 4,096 keys (the host loop, and the routed
+call and the segmented kernel's tile and stride choices where the tree
+has them) and ``merge_dedup`` at the benchmark's two shapes, each as that
+tree makes it.
 Run either on two trees in one call to compare them.
 
+Each phase's end is logged on the script's clock (``[time]`` lines).
 Device times come from the profiler, each kernel's mean over the launches
 that three sessions recorded (late in a long process a session loses
 some); one that no session recorded is taken by CUDA events, the calls
 queued behind a spin kernel, and its record names it under
-``events_timed``.
+``events_timed``, as it names ``rank_probe``'s segmented plain version
+(a loop of small launches a segment, timed by CUDA events).
 
 The second-to-last line of output is the card's name and power limit, the
 one before it the per-kernel JSON record (eleven kernels), the one before
@@ -185,7 +203,12 @@ def call_ms(fn, iters: int = 50, warmup: int = 3) -> float:
 
 
 # device function names of kernels.cu (the profiler reports them demangled)
-CUDA_KERNELS = ("rank_probe_kernel", "lookup_probe_kernel", "count_le_kernel",
+CUDA_KERNELS = ("probe_kernel", "rank_search_kernel", "count_le_kernel",
+                # the probes' and the merge's kernels on trees before
+                # rank_probe's segmented form and the merge path, for
+                # --kernel-times --src on such a tree
+                "rank_probe_kernel", "lookup_probe_kernel",
+                "merge_scatter_kernel", "merge_keep_kernel",
                 "coalesce_radix_kernel", "pack_kernel", "bitonic_stage_kernel",
                 # the one-CTA bitonic sort of trees before the radix sort,
                 # for --kernel-times --src on such a tree
@@ -194,8 +217,7 @@ CUDA_KERNELS = ("rank_probe_kernel", "lookup_probe_kernel", "count_le_kernel",
                 "sketch_scratch_kernel", "sketch_scale_kernel",
                 # segment_sum zeroes its counts with a memset on the stream
                 "Memset",
-                "gc_lookup_kernel", "bloom_probe_kernel",
-                "merge_scatter_kernel", "merge_keep_kernel",
+                "gc_lookup_kernel", "bloom_probe_kernel", "merge_path_kernel",
                 "partition_count_kernel", "partition_scan_kernel",
                 "partition_scatter_kernel", "page_gather_kernel")
 
@@ -381,6 +403,87 @@ def _check_probe_case(rng, device, n, q, hi, errs, *, dup=False,
         want = np.where((c >= 0) & (qs <= maxs[np.maximum(c, 0)]), c, -1)
     require((fidx == want).all(),
             f"interval_rank disagrees with numpy at n={n} q={q} hi={hi}")
+
+
+def _rank_segments_case(rng, sizes, counts, device):
+    """Sorted unique runs of ``sizes`` keys over the u64 range and, per
+    segment, ``counts`` queries (half run keys, 0 and 2^64 - 1 and the
+    run's last key among them), grouped.  -> (args, runs, keys)."""
+    import numpy as np
+    runs = [np.unique(rng.integers(0, 2**64 - 1, n, dtype=np.uint64,
+                                   endpoint=True)) for n in sizes]
+    qs = []
+    for run, c in zip(runs, counts):
+        q = rng.integers(0, 2**64 - 1, c, dtype=np.uint64, endpoint=True)
+        if len(run) and c:
+            q[: c // 2] = run[rng.integers(0, len(run), c // 2)]
+            q[: min(c, 3)] = np.array([0, 2**64 - 1, run[-1]],
+                                      np.uint64)[: min(c, 3)]
+        qs.append(q)
+    keys = np.concatenate(qs) if qs else np.zeros(0, np.uint64)
+    counts = np.asarray(counts, np.int64)
+    args = (u64_tensor(keys, device), np.cumsum(counts) - counts, counts,
+            [u64_tensor(r, device) for r in runs])
+    return args, runs, keys
+
+
+def _check_rank_cases(rng, device, errs):
+    """``rank_probe``'s run form either side of its staging threshold, at
+    the whole-run staging cap and past it, at the staged and global
+    searches; its segmented form with empty runs and segments, one-key
+    runs, the cap, one multi_get's vSST finds (400 runs of 2,600 keys, 10
+    queries each; 1,530 runs of 630, 3 each), 1,200 segments and a
+    segment past one tile, at the wrapper's shape and forced ones, and
+    with a value row a run; against the plain versions and
+    NumPy's ``searchsorted``, queries equal to every run key and
+    0, 2^63 and 2^64 - 1."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.lookup_probe.ops import RUN_STAGE_MIN
+    for n in (0, 1, 2, RUN_STAGE_MIN - 1, RUN_STAGE_MIN, 631, 2047, 2048,
+              2049, 4097, 20000):
+        run = np.unique(rng.integers(1, 2**64 - 2, n, dtype=np.uint64))
+        qs = np.concatenate([run, run + np.uint64(1), run - np.uint64(1),
+                             np.array([0, 2**63, 2**64 - 1], np.uint64),
+                             rng.integers(0, 2**64 - 1, 10096,
+                                          dtype=np.uint64, endpoint=True)])
+        qt, rt = u64_tensor(qs, device), u64_tensor(run, device)
+        want = kernels.rank_probe_ref(qt, rt)
+        for stride in (None, 0, 1, 8):
+            got = kernels.rank_probe(qt, rt, _stride=stride)
+            errs["rank_probe"] = max(errs["rank_probe"],
+                                     max_abs_err(got, want))
+        require((got[1].cpu().numpy() == np.searchsorted(run, qs)).all(),
+                f"rank_probe disagrees with numpy at n={n}")
+    for sizes, counts in (([0, 30, 0, 40, 1], [5, 10, 3, 0, 4]),
+                          ([1] * 50, [3] * 50),
+                          ([2047, 2048, 2049], [700] * 3),
+                          ([2600] * 400, [10] * 400),
+                          ([630] * 1530, [3] * 1530),
+                          ([30] * 1200, [4] * 1200),
+                          ([20000, 5], [3000, 1500])):
+        args, runs, keys = _rank_segments_case(rng, sizes, counts, device)
+        want = kernels.rank_probe_segments_ref(*args)
+        for kw in ({}, {"_tile": 32, "_stride": 2},
+                   {"_tile": 1024, "_stride": 1}, {"_tile": 64,
+                                                   "_stride": 64}):
+            got = kernels.rank_probe_segments(*args, **kw)
+            errs["rank_probe"] = max(errs["rank_probe"],
+                                     max_abs_err(got, want))
+        both = args[:3] + ([torch.stack([r, u64_tensor(rng.integers(
+            0, 2**64 - 1, r.shape[0], dtype=np.uint64, endpoint=True),
+            device)]) for r in args[3]],)
+        for kw in ({}, {"_tile": 128, "_stride": 1}):
+            errs["rank_probe"] = max(errs["rank_probe"], max_abs_err(
+                kernels.rank_probe_segments(*both, values=True, **kw),
+                kernels.rank_probe_segments_ref(*both, values=True)))
+        rank, (_, starts, counts, _) = got[1].cpu().numpy(), args
+        for s, run in enumerate(runs):
+            seg = slice(starts[s], starts[s] + counts[s])
+            require((rank[seg] == np.searchsorted(run, keys[seg])).all(),
+                    f"rank_probe_segments disagrees with numpy at "
+                    f"sizes={sizes[:3]}")
 
 
 def _check_coalesce_case(rng, device, m, errs, hi_rank, hi_pos, *,
@@ -670,6 +773,7 @@ def kernel_phase(device) -> dict:
     for m, hr, hp in ((1000, 400, 2**16), (4096, 1, 1), (cap, 2**32 - 1, 5)):
         _check_coalesce_case(rng, device, m, errs, hr, hp, equal=True)
     _check_count_le_cap_cases(rng, device, errs)
+    _check_rank_cases(rng, device, errs)
     _check_segment_cases(rng, device, errs)
     _check_sketch_add_cases(rng, device, errs)
     _check_level_cases(rng, device, errs)
@@ -714,7 +818,8 @@ def _bench_kernel_checks(rng, device, errs) -> None:
     import numpy as np
     import torch
     from repro_torch import kernels
-    from repro_torch.kernels.common import u32_tensor
+    from repro_torch.kernels.common import merge_threads, u32_tensor
+    from repro_torch.kernels.merge.ops import ITEMS as MERGE_ITEMS
 
     def u32(*cols):
         return tuple(u32_tensor(np.asarray(c), device) for c in cols)
@@ -759,11 +864,20 @@ def _bench_kernel_checks(rng, device, errs) -> None:
         (may,) = _hold("bloom_probe", (*u32(probes), words, k, nbits), errs)
         require(bool(may[:q // 2].all()), f"bloom false negative at n={n}")
     # merge: the reference's (na, nb) cases, then empty runs, runs sharing
-    # every key, rows equal in key and seq, key 0xFFFFFFFF
+    # every key, rows equal in key and seq, key 0xFFFFFFFF; then the merge
+    # path's tiles (the largest, of 8 rows a thread; every choice of rows a
+    # thread is held on each case): runs ending either side of a tile
+    # boundary, a key's two copies on either side of one (pair k at rows
+    # 2k - 1 and 2k), and the deploy size
+    tile = merge_threads() * 8
     for na, nb, kind in ((1, 1, ""), (10, 3, ""), (100, 100, ""),
                          (64, 257, ""), (0, 0, ""), (0, 5, ""), (5, 0, ""),
                          (300, 300, "shared"), (300, 300, "equal"),
-                         (40, 30, "top"), (5000, 7000, "")):
+                         (40, 30, "top"), (5000, 7000, ""),
+                         (tile, tile, ""), (tile - 1, tile + 1, ""),
+                         (0, tile + 1, ""), (3, 2 * tile - 3, ""),
+                         (tile + 1, tile, "split"), (4097, 4096, "split"),
+                         (1 << 19, 1 << 19, "")):
         ak = np.sort(rng.choice(np.arange(4 * (na + nb) + 4,
                                           dtype=np.uint32), na, replace=False))
         bk = np.sort(rng.choice(np.arange(4 * (na + nb) + 4,
@@ -775,8 +889,16 @@ def _bench_kernel_checks(rng, device, errs) -> None:
             bseq = aseq.copy() if kind == "equal" else aseq + 1
         if kind == "top":
             ak[-1] = bk[-1] = 0xFFFFFFFF
-        keys, _, _, keep = _hold("merge_dedup", u32(
-            ak, aseq, ak + 1, bk, bseq, bk + 2), errs)
+        if kind == "split":
+            ak = np.arange(na, dtype=np.uint32)
+            bk = ak[1:nb + 1].copy()
+            bseq = aseq[1:nb + 1] + 1
+        args = u32(ak, aseq, ak + 1, bk, bseq, bk + 2)
+        keys, _, _, keep = _hold("merge_dedup", args, errs)
+        want = kernels.merge_dedup_ref(*args)
+        for items in MERGE_ITEMS:
+            errs["merge_dedup"] = max(errs["merge_dedup"], max_abs_err(
+                kernels.merge_dedup(*args, _items=items), want))
         kk = keys.cpu().numpy().view(np.uint32)
         require(bool((np.diff(kk.astype(np.int64)) >= 0).all())
                 and int(keep.sum()) == len(np.union1d(ak, bk)),
@@ -898,8 +1020,9 @@ class Capture:
     (wraps the package-level wrappers that ``core/accel.py`` and
     ``core/adaptive/`` call), and tallies the level probes' shapes."""
 
-    NAMES = ("rank_probe", "lookup_probe_segments", "interval_rank",
-             "run_coalesce", "segment_sum", "sketch_add", "sketch_estimate")
+    NAMES = ("rank_probe", "rank_probe_segments", "lookup_probe_segments",
+             "interval_rank", "run_coalesce", "segment_sum", "sketch_add",
+             "sketch_estimate")
 
     def __init__(self):
         import repro_torch.kernels as K
@@ -935,6 +1058,8 @@ class Capture:
                 size = args[0].shape[0] + args[1]
             elif name in ("sketch_estimate", "sketch_add"):
                 size = args[0].numel() + args[1].numel()  # table + keys
+            elif name == "rank_probe_segments":       # keys found
+                size = int(sum(args[2]))
             elif name == "lookup_probe_segments":     # slots probed
                 size = int(sum(args[4]))
                 lv = self.levels
@@ -1030,7 +1155,7 @@ def main_run(device, *, dataset_bytes=1 << 30, n_keys=1 << 20,
 
     from repro_torch import kernels
     from repro_torch.core.read.lookup import lookup_entries
-    for fn in kernels.KERNELS:
+    for fn in kernels.KERNELS + (kernels.rank_probe_segments,):
         fn.launches = 0
     lookup_entries.host_table_probes = 0
     with capture if capture is not None else contextlib.nullcontext():
@@ -1041,8 +1166,13 @@ def main_run(device, *, dataset_bytes=1 << 30, n_keys=1 << 20,
         timed("multi_get", n_gets, lambda: gets(n_gets))
         timed("multi_scan", n_scans, scans)
     launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    # rank_probe's two forms: the memtable probes and the vSST finds
+    by_form = {"run": launches["rank_probe"]
+               - kernels.rank_probe_segments.launches,
+               "segments": kernels.rank_probe_segments.launches}
     host_probes = lookup_entries.host_table_probes
     log("[main] launches: " + json.dumps(launches)
+        + f"; rank_probe by form: {json.dumps(by_form)}"
         + f"; table probes on the host path: {host_probes}")
 
     def readback():
@@ -1071,6 +1201,7 @@ def main_run(device, *, dataset_bytes=1 << 30, n_keys=1 << 20,
             busy[name] = {"device_busy_s": us / 1e6, "wall_s": wall[0],
                           "idle_share": 1 - us / 1e6 / wall[0]}
     out = {"phases": phases, "launches": launches,
+           "rank_probe_by_form": by_form,
            "host_table_probes": host_probes, "device_busy": busy,
            "space_amp": st["space_amp"], "write_amp": st["write_amp"],
            "n_gc_runs": st["n_gc_runs"], "n_compactions": st["n_compactions"],
@@ -1267,17 +1398,62 @@ def _bound(nbytes: float, nops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def shapes_phase(capture: Capture, launches: dict, by_form: dict) -> tuple:
+def _search_sectors(m: int, c: int) -> int:
+    """Distinct 32-byte sectors that ``c`` binary searches of a sorted run
+    of ``m`` u64 keys read at least: at search depth d at most
+    min(2^d, c) probes, a sector each while probes are 4 or more keys
+    apart (deeper ones fall in a sector already read)."""
+    if m == 0 or c == 0:
+        return 0
+    depth = max(1, math.ceil(math.log2(m + 1)) - 2)
+    return min(-(-m // 4), sum(min(1 << d, c) for d in range(depth)))
+
+
+# (threads a CTA, fence stride) of the segmented rank_probe timed at the
+# main run's largest vSST-find call and at the seeded vSST finds (one
+# thread a query in device memory lost to every stride at 32 threads,
+# PERF.md §6, and is gone)
+SEGMENT_CHOICES = ((32, 8), (128, 8), (32, 16), (128, 16), (32, 32),
+                   (128, 32), (32, 64), (64, 8))
+
+
+def _segment_choices(kernels, args, kw) -> dict:
+    """Device ms of ``rank_probe_segments(*args, **kw)`` at each
+    ``SEGMENT_CHOICES`` shape, each checked against the plain version,
+    timed in the order A..Z then Z..A;
+    -> {"tile{t}_stride{s}": [first, second]}."""
+    want = kernels.rank_probe_segments_ref(*args, **kw)
+    out = {}
+    for tile, stride in SEGMENT_CHOICES:
+        got = kernels.rank_probe_segments(*args, **kw, _tile=tile,
+                                          _stride=stride)
+        require(max_abs_err(got, want) == 0,
+                f"rank_probe_segments disagrees with its plain version at "
+                f"tile {tile}, stride {stride}")
+    for tile, stride in SEGMENT_CHOICES + SEGMENT_CHOICES[::-1]:
+        out.setdefault(f"tile{tile}_stride{stride}", []).append(device_ms(
+            lambda: kernels.rank_probe_segments(*args, **kw, _tile=tile,
+                                                _stride=stride),
+            only=CUDA_KERNELS,
+            label=f"rank_probe_segments tile {tile} stride {stride}"))
+    log("[shapes] rank_probe segments choices: " + json.dumps(out))
+    return out
+
+
+def shapes_phase(capture: Capture, launches: dict, by_form: dict,
+                 rank_by_form: dict) -> tuple:
     """Main-path inputs: exact check + timings.  -> (kernel records, the
-    records of the other forms: ``segment_sum``'s index form, which the
-    lifetime histogram's adds take, and those the main path no longer
-    calls, ``lookup_probe`` one table a launch and ``gather_min64`` on a
+    records of the other forms: ``rank_probe``'s segmented form, which
+    the vSST finds take, ``segment_sum``'s index form, which the lifetime
+    histogram's adds take, and those the main path no longer calls,
+    ``lookup_probe`` one table a launch and ``gather_min64`` on a
     host-built index matrix).
 
     ``launches``: each kernel's count from the run that carries it (the
     main run for the probes and fetch planning, the adaptive run for the
     segment-reduce kernels); ``by_form``: ``segment_sum``'s count by form
-    in the adaptive run."""
+    in the adaptive run; ``rank_by_form``: ``rank_probe``'s in the main
+    run (its record is its run form, the memtable probe)."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -1290,7 +1466,7 @@ def shapes_phase(capture: Capture, launches: dict, by_form: dict) -> tuple:
     recs, forms = [], []
 
     def record(name, args, kern, plain, lib, nbytes, nops, into=recs,
-               form=None, form_launches=None, err=None):
+               form=None, form_launches=None, err=None, plain_calls=None):
         if err is None:
             err = max_abs_err(kern(), plain())
         require(err == 0, f"{name} disagrees with its plain version at "
@@ -1299,7 +1475,12 @@ def shapes_phase(capture: Capture, launches: dict, by_form: dict) -> tuple:
         # the kernel); call_ms: the whole wrapper call as the store makes it
         n0 = len(EVENTS_TIMED)
         ms = device_ms(kern, only=CUDA_KERNELS, label=f"{name} ms")
-        plain_ms = device_ms(plain, iters=5, label=f"{name} plain_ms")
+        if plain_calls is None:
+            plain_ms = device_ms(plain, iters=5, label=f"{name} plain_ms")
+        else:   # a loop of ~100 small launches a segment: CUDA events
+            plain()
+            plain_ms = queued_ms(plain, plain_calls)
+            EVENTS_TIMED.append(f"{name} plain_ms")
         lib_ms = device_ms(lib, label=f"{name} library_ms") \
             if lib is not None else None
         bound_ms, bound_by = _bound(nbytes, nops)
@@ -1362,6 +1543,38 @@ def shapes_phase(capture: Capture, launches: dict, by_form: dict) -> tuple:
            lambda: kernels.rank_probe_ref(q, run),
            lambda: torch.searchsorted(ro, qo),
            8 * nq + 8 * n + 9 * nq, nq * math.log2(n + 1))
+    recs[-1]["form"] = "run"
+    recs[-1]["launches_by_form"] = rank_by_form
+    # the segmented form at the largest vSST-find call (with the vids the
+    # strict locator check reads); bytes: the keys, the distinct sectors
+    # of each segment's binary searches (at most the whole run), the
+    # value's sector at each key found, and the outputs
+    args, kw = best["rank_probe_segments"][1:]
+    keys, starts, counts, runs = args
+    values = kw.get("values", False)
+    nq = keys.shape[0]
+    found = kernels.rank_probe_segments(*args, **kw)[0]
+    seg_bytes = sum(min(8 * r.shape[-1], 32 * _search_sectors(r.shape[-1],
+                                                               int(c)))
+                    for r, c in zip(runs, counts))
+    nval = int(found.sum()) if values else 0
+    record("rank_probe", args,
+           lambda: kernels.rank_probe_segments(*args, **kw),
+           lambda: kernels.rank_probe_segments_ref(*args, **kw),
+           None, 8 * nq + seg_bytes + 32 * nval + 9 * nq
+           + (8 * nq if values else 0),
+           sum(int(c) * math.log2(r.shape[-1] + 1)
+               for r, c in zip(runs, counts)),
+           into=forms, form="segments",
+           form_launches=rank_by_form["segments"], plain_calls=2)
+    lens = np.array([r.shape[-1] for r in runs])
+    forms[-1]["launches_by_form"] = rank_by_form
+    forms[-1]["runs"] = {"keys_mean": float(lens.mean()),
+                         "keys_max": int(lens.max()),
+                         "queries_mean": float(counts.mean()),
+                         "queries_max": int(counts.max()),
+                         "values": values}
+    forms[-1]["choices_ms"] = _segment_choices(kernels, args, kw)
 
     # the main path calls count_le through interval_rank (the interval
     # check fused into the kernel); searchsorted gives the count only
@@ -1597,7 +1810,11 @@ def crossover_phase(store, sizes=CROSSOVER_SIZES, iters=40) -> dict:
     path it replaces, per batch size: the probes and fetch planning on the
     store's own columns (the table probes as one level probe over the
     level with the most files and over the level with the fewest, against
-    the host's loop over its files), the access tracker's sketch add,
+    the host's loop over its files; one vSST's find; and a multi_get's
+    vSST finds, keys drawn over every vSST's records as a multi_get's
+    fall, through ``fetch.find_records`` routed (one call with the
+    grouping and the locator check) against its host path, on trees that
+    have it), the access tracker's sketch add,
     lifetime observe (``segment_sum``) and sketch estimate
     (``gather_min64``) on a tracker of the 1 GiB ``scavenger_adaptive``
     configuration's widths; then ``few_files_crossover``.  A routed call
@@ -1610,6 +1827,7 @@ def crossover_phase(store, sizes=CROSSOVER_SIZES, iters=40) -> dict:
     from repro_torch.core.adaptive.lifetime import LifetimeEstimator
     from repro_torch.core.adaptive.sketch import DecaySketch
     from repro_torch.core.engine.keys import BloomFilter, hash_family
+    from repro_torch.core.values import fetch
     from repro_torch.core.values.fetch import split_runs
     rng = np.random.default_rng(11)
     v = store.version
@@ -1650,6 +1868,36 @@ def crossover_phase(store, sizes=CROSSOVER_SIZES, iters=40) -> dict:
                                  [files[fi] for fi in fis], rows, starts,
                                  counts)
 
+    # a multi_get's keys fall on the vSSTs as their records do: draw
+    # records uniformly over every vSST (the main run's 4,096-key batches
+    # touched ~1,500 vSSTs, ~2.7 keys each)
+    vfids = np.concatenate([np.full(len(t.keys), fid) for fid, t in
+                            v.value_files.items()])
+    vkeys = np.concatenate([t.keys for t in v.value_files.values()])
+    vvids = np.concatenate([t.vids for t in v.value_files.values()])
+
+    def vsst_batch(b):      # one multi_get's finds
+        j = rng.integers(0, len(vkeys), b)
+        return vfids[j], vkeys[j], vvids[j]
+
+    off_pol = accel.KernelPolicy(False)
+
+    def find_host(fsel, ksel, vsel):    # the host path: a find a vSST
+        saved_pol = store.cfg._kernel_policy
+        store.cfg._kernel_policy = off_pol
+        try:
+            return fetch.find_records(store, fsel, ksel, vsel, True)
+        finally:
+            store.cfg._kernel_policy = saved_pol
+
+    def find_routed(fsel, ksel, vsel):  # every vSST's find in one call
+        return fetch.find_records(store, fsel, ksel, vsel, True)
+
+    def table_find(t, ks):  # one vSST's find as the tree routes it
+        if hasattr(accel, "table_find_segments"):
+            return accel.table_find_segments(store, [t], ks, [0], [len(ks)])
+        return accel.table_find(store, t, ks)
+
     def plan_host(ranks, pos):
         bounds = np.nonzero(np.diff(ranks))[0] + 1
         return [split_runs(np.unique(p), window)
@@ -1687,20 +1935,26 @@ def crossover_phase(store, sizes=CROSSOVER_SIZES, iters=40) -> dict:
         vks, lks, fks = draw(vtab.keys, b), draw(lkeys, b), draw(fkeys, b)
         kraw, plan = hash_family(lks, k), level_plan(lvl, lks)
         fraw, fplan = hash_family(fks, k), level_plan(few, fks)
-        # one multi_get's fetches: ~10 keys per vSST, grouped by file
+        # one multi_get's fetch plan: ~10 keys per vSST, grouped by file
         ranks = np.sort(rng.integers(0, max(1, b // 10), b)).astype(np.int64)
         pos = rng.integers(0, 4 * b, b).astype(np.int64)
         tks = rng.integers(0, 1 << 40, b, dtype=np.uint64)
         # lifetime observe routes one row per distinct group seen before
         groups = rng.permutation(acfg.adaptive_groups)[:b]
+        found = vsst_batch(b)
+        vsst = ({"vsst_find": (lambda: find_host(*found),
+                               via(kernels.rank_probe_segments,
+                                   lambda: find_routed(*found)))}
+                if hasattr(fetch, "find_records") else {})
         return {  # op: (host path, routed path)
+            **vsst,
             "lookup_probe_level": (lambda: level_host(lks, kraw, plan),
                                    lambda: level_routed(lks, kraw, plan)),
             "lookup_probe_level_fewest": (
                 lambda: level_host(fks, fraw, fplan),
                 lambda: level_routed(fks, fraw, fplan)),
             "rank_probe": (lambda: vtab.find(vks),
-                           lambda: accel.table_find(store, vtab, vks)),
+                           lambda: table_find(vtab, vks)),
             "count_le": (lambda: v.assign_files(lvl, lks),
                          lambda: accel.assign_files(store, lvl, lks)),
             "run_coalesce": (lambda: plan_host(ranks, pos),
@@ -1860,8 +2114,10 @@ def kernel_times_only(src: Path) -> None:
     holding the kernel against its plain version.  Then a level's table
     probes (``_level_times``), the routed sketch estimate
     (``_estimate_times``) and add (``_sketch_add_times``), the tracker's
-    write observation (``_observe_times``) and the level file assignment
-    (``_interval_times``), as the store makes them on that tree."""
+    write observation (``_observe_times``), the level file assignment
+    (``_interval_times``), ``rank_probe``'s run form (``_rank_times``), a
+    multi_get's vSST finds (``_vsst_find_times``) and ``merge_dedup``
+    (``_merge_times``), as the store makes them on that tree."""
     import numpy as np
     import torch
     sys.path.insert(0, str(src.resolve()))
@@ -1908,6 +2164,9 @@ def kernel_times_only(src: Path) -> None:
     out["sketch_add"] = _sketch_add_times(kernels)
     out["observe_writes"] = _observe_times()
     out["interval_rank"] = _interval_times(kernels)
+    out["rank_probe"] = _rank_times(kernels)
+    out["vsst_find"] = _vsst_find_times(kernels)
+    out["merge_dedup"] = _merge_times()
     print(json.dumps({"kernel_times": out}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -2198,6 +2457,226 @@ def _interval_times(kernels, device="cuda") -> dict:
     return res
 
 
+# (queries, run keys) of rank_probe's run form: the main path's memtable
+# probe, the whole-run staging cap, a long run, and short runs either side
+# of the staging threshold
+RANK_RUN_SHAPES = ((10096, 631), (10096, 2048), (10096, 20000),
+                   (10096, 1), (10096, 2), (10096, 4), (10096, 8),
+                   (10096, 16), (10096, 32), (10096, 64))
+
+
+RUN_TILES = (64, 128, 256)
+RUN_STRIDES = (1, 2, 4, 8)
+
+
+def _rank_times(kernels, device="cuda") -> dict:
+    """``rank_probe``'s run form at ``RANK_RUN_SHAPES`` on seeded runs,
+    half the queries run keys: held against its plain version, then its
+    device time (three profiler sessions of 100 launches) as the tree
+    makes it and, on a tree that takes the fence stride, searched in
+    device memory (stride 0) and staged (stride 1) and, at the first
+    three shapes, at ``RUN_TILES`` x ``RUN_STRIDES``."""
+    import inspect
+    import numpy as np
+    res = {}
+    rng = np.random.default_rng(37)
+    choices = "_stride" in inspect.signature(kernels.rank_probe).parameters
+    for q, n in RANK_RUN_SHAPES:
+        run = np.unique(rng.integers(0, 1 << 40, n + n // 8 + 8,
+                                     dtype=np.uint64))[:n]
+        qs = rng.integers(0, 1 << 40, q, dtype=np.uint64)
+        qs[: q // 2] = run[rng.integers(0, n, q // 2)]
+        qt, rt = u64_tensor(qs, device), u64_tensor(run, device)
+        err = max_abs_err(kernels.rank_probe(qt, rt),
+                          kernels.rank_probe_ref(qt, rt))
+        require(err == 0, f"rank_probe disagrees with its plain version "
+                          f"at q={q} n={n}")
+        rec = {"ms": device_ms(lambda: kernels.rank_probe(qt, rt),
+                               iters=100, only=CUDA_KERNELS,
+                               label=f"rank_probe {q}x{n}")}
+        if choices:
+            grid = ([(t, st) for t in RUN_TILES for st in RUN_STRIDES]
+                    if n >= 631 else [(None, 0), (None, 1)])
+            for tile, stride in grid:
+                kw = {"_stride": stride} | (
+                    {} if tile is None else {"_tile": tile})
+                rec[f"tile{tile}_stride{stride}_ms"] = device_ms(
+                    lambda kw=kw: kernels.rank_probe(qt, rt, **kw),
+                    iters=100, only=CUDA_KERNELS,
+                    label=f"rank_probe {q}x{n} {kw}")
+        log(f"[kernel-times] rank_probe q={q} n={n}: {json.dumps(rec)}")
+        res[f"q{q}_n{n}"] = rec
+    return res
+
+
+def _vsst_host_loop(value_files, fsel, ksel, vsel) -> None:
+    """The host loop ``core/values/fetch.py`` ran over a batch's vSSTs
+    before it grouped their keys: a mask, a gather and an
+    ``SSTable.find`` a vSST, and the strict locator check."""
+    import numpy as np
+    from repro_torch.core.engine.tables import SSTable
+    uniq, first = np.unique(fsel, return_index=True)
+    for fid in uniq[np.argsort(first)].tolist():
+        t = value_files[fid]
+        m = fsel == fid
+        pos = SSTable.find(t, ksel[m])
+        require(bool((pos >= 0).all() and (t.vids[pos] == vsel[m]).all()),
+                "stale locator")
+
+
+# (keys, vSSTs, keys a vSST): a multi_get's finds as the main run makes
+# them, its keys drawn uniformly over the records of a 1 GiB store's
+# ~1,670 vSSTs of ~630 records (4,096 keys touch ~1,530 of them, ~2.7
+# keys each), and smaller batches
+VSST_FIND_SHAPES = ((4096, 1670, 630), (1024, 1670, 630), (128, 1670, 630))
+
+
+def _vsst_find_times(kernels, device="cuda") -> dict:
+    """A multi_get's vSST finds at ``VSST_FIND_SHAPES`` on seeded vSSTs:
+    the wall ms of the earlier host loop (``_vsst_host_loop``, on every tree)
+    and, on a tree with ``fetch.find_records``, of its host path (kernels
+    off) and its routed find (the grouping, the one launch, the download
+    and the locator check), both held against the host's positions, with
+    the routed call alone (``accel.table_find_segments``) beside them; and
+    the segmented kernel's device time at the wrapper's shape and at
+    ``SEGMENT_CHOICES``."""
+    from repro_torch.core import accel
+    import types
+    import numpy as np
+    from repro_torch.core.engine.tables import SSTable
+    from repro_torch.core.values import fetch
+
+    class VSST(types.SimpleNamespace):
+        find = SSTable.find
+
+    rng = np.random.default_rng(41)
+    res = {}
+    for nkeys, nfiles, per in VSST_FIND_SHAPES:
+        store = _stub_store(device)
+        files = {}
+        for f in range(nfiles):
+            k = np.unique(rng.integers(0, 1 << 40, per + per // 8,
+                                       dtype=np.uint64))[:per]
+            files[100 + f] = VSST(
+                keys=k, n=len(k), vids=rng.permutation(per).astype(
+                    np.uint64) + np.uint64(1))
+        store.version = types.SimpleNamespace(value_files=files)
+        fsel = 100 + rng.integers(0, nfiles, nkeys)
+        pos = rng.integers(0, per, nkeys)
+        ksel = np.array([files[f].keys[j] for f, j in
+                         zip(fsel.tolist(), pos.tolist())], np.uint64)
+        vsel = np.array([files[f].vids[j] for f, j in
+                         zip(fsel.tolist(), pos.tolist())], np.uint64)
+        _vsst_host_loop(files, fsel, ksel, vsel)
+        rec = {"vssts": len(np.unique(fsel)), "keys": nkeys,
+               "host_ms": [_wall_ms(lambda: _vsst_host_loop(
+                   files, fsel, ksel, vsel), iters=20) for _ in range(3)]}
+        if hasattr(fetch, "find_records"):
+            def find(pol):
+                store.cfg._kernel_policy = pol
+                return fetch.find_records(store, fsel, ksel, vsel, True)
+            on, off = accel.KernelPolicy(True, 1), accel.KernelPolicy(False)
+            order, got_rank, got_pos = find(on)
+            want = np.concatenate([np.searchsorted(
+                files[f].keys, ksel[fsel == f]) for f in order.tolist()])
+            require(bool((got_pos == want).all()
+                         and (find(off)[2] == want).all()),
+                    "the routed vSST find disagrees with the host's")
+            rec["host_grouped_ms"] = [_wall_ms(lambda: find(off), iters=20)
+                                      for _ in range(3)]
+            rec["routed_ms"] = [_wall_ms(lambda: find(on), iters=20)
+                                for _ in range(3)]
+            counts = np.bincount(got_rank, minlength=len(order))
+            starts = np.cumsum(counts) - counts
+            kg = np.concatenate([ksel[fsel == f] for f in order.tolist()])
+            tables = [files[f] for f in order.tolist()]
+            rec["call_ms"] = [_wall_ms(lambda: accel.table_find_segments(
+                store, tables, kg, starts, counts), iters=20)
+                for _ in range(3)]
+            args = (u64_tensor(kg, device), starts, counts,
+                    [store.dev_cache.get_rows(t.keys, t.vids)
+                     for t in tables])
+            kw = {"values": True}
+            rec["device_ms"] = device_ms(
+                lambda: kernels.rank_probe_segments(*args, **kw), iters=100,
+                only=CUDA_KERNELS, label=f"rank_probe_segments {nkeys}")
+            rec["choices_ms"] = _segment_choices(kernels, args, kw)
+        log(f"[kernel-times] vsst_find {nkeys}: {json.dumps(rec)}")
+        res[f"keys_{nkeys}"] = rec
+    return res
+
+
+def _merge_times(device="cuda") -> dict:
+    """``merge_dedup`` at the kernel benchmark's ``bench`` (2 x 2,048
+    equal runs) and ``deploy`` (2 x 2^19 sharing half their keys) shapes:
+    held against its plain version, then its device time (three profiler
+    sessions of 100 launches) and the wrapper call's, and on a tree that
+    takes the rows a thread merges, ``_merge_items_sweep``."""
+    import inspect
+    from repro_torch.bench import kernels as bench
+    from repro_torch.kernels import merge_dedup
+    res = {}
+    choices = "_items" in inspect.signature(merge_dedup).parameters
+    for case in bench.bench_cases() + bench.deploy_cases():
+        if case.kernel != "merge_dedup":
+            continue
+        args = bench.operands(case, device)
+        fn = bench.wrapper(case)
+        err = max_abs_err(fn(*args), bench.plain(case)(*args))
+        require(err == 0, f"merge_dedup disagrees with its plain version "
+                          f"at the {case.shapes} shape")
+        rec = {"shape": case.shape,
+               "ms": [device_ms(lambda: fn(*args), iters=100,
+                                only=CUDA_KERNELS,
+                                label=f"merge_dedup {case.shapes}")
+                      for _ in range(2)],
+               "call_ms": call_ms(lambda: fn(*args), iters=100)}
+        log(f"[kernel-times] merge_dedup {case.shapes}: {json.dumps(rec)}")
+        res[case.shapes] = rec
+    if choices:
+        res["items_by_rows"] = _merge_items_sweep(merge_dedup, device)
+    return res
+
+
+# rows of the merges at which merge_dedup's two shapes are timed, each two
+# runs of half the rows sharing half their keys (the deploy shape's mix)
+MERGE_SWEEP_ROWS = tuple(1 << e for e in range(12, 21))
+
+
+def _merge_items_sweep(merge_dedup, device="cuda") -> dict:
+    """``merge_dedup``'s device ms at 1 and at 8 rows a thread over
+    ``MERGE_SWEEP_ROWS``, in the order 1, 8, 8, 1 at each size, each held
+    against the plain version; -> {rows: {items: [first, second]}}."""
+    import numpy as np
+    from repro_torch.kernels import merge_dedup_ref
+    from repro_torch.kernels.common import u32_tensor
+    rng = np.random.default_rng(23)
+    out = {}
+    for n in MERGE_SWEEP_ROWS:
+        half = n // 2
+        pool = np.unique(rng.integers(0, 1 << 32, 2 * n, dtype=np.uint64))
+        pool = rng.permutation(pool[:half + half // 2])
+        ak = np.sort(pool[:half]).astype(np.uint32)
+        bk = np.sort(pool[half // 2:half // 2 + half]).astype(np.uint32)
+        args = tuple(u32_tensor(c, device) for c in (
+            ak, np.full(half, 2, np.uint32), ak ^ 1,
+            bk, np.full(half, 1, np.uint32), bk ^ 2))
+        want = merge_dedup_ref(*args)
+        rec = {}
+        for items in (1, 8, 8, 1):
+            if items not in rec:
+                require(max_abs_err(merge_dedup(*args, _items=items),
+                                    want) == 0,
+                        f"merge_dedup disagrees with its plain version at "
+                        f"{n} rows, {items} a thread")
+            rec.setdefault(items, []).append(device_ms(
+                lambda: merge_dedup(*args, _items=items), iters=100,
+                only=CUDA_KERNELS, label=f"merge_dedup {n} items {items}"))
+        log(f"[kernel-times] merge_dedup rows {n}: {json.dumps(rec)}")
+        out[n] = rec
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2215,7 +2694,9 @@ def main(argv) -> int:
                          "gather_min64 at the adaptive run's shapes, "
                          "run_coalesce at M from 64 to 8,192, a level's "
                          "table probes, the sketch estimate and add, the "
-                         "tracker's observe_writes and interval_rank")
+                         "tracker's observe_writes, interval_rank, "
+                         "rank_probe's two forms, a multi_get's vSST finds "
+                         "and merge_dedup")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="directory holding the repro_torch package")
     args = ap.parse_args(argv)
@@ -2235,19 +2716,30 @@ def main(argv) -> int:
         return 0
     sys.path.insert(0, str(args.src.resolve()))
     t_start = time.perf_counter()
+
+    def mark(phase):        # the script's clock at each phase's end
+        log(f"[time] {phase} done at {time.perf_counter() - t_start:.1f}s")
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     build_phase()
     kernel_phase("cuda")
+    mark("kernels")
     bench_recs = bench_phase("cuda")
+    mark("bench")
     cap = Capture()
     main, store = main_run("cuda", capture=cap)
     for name in MAIN_KERNELS:
         require(main["launches"][name] > 0,
                 f"kernel {name} was not launched in the main run")
+    for form, n in main["rank_probe_by_form"].items():
+        require(n > 0, f"rank_probe's {form} form was not launched in the "
+                       f"main run")
+    mark("main")
     crossover_phase(store)
+    mark("crossover")
     del store
     adaptive = adaptive_run("cuda", capture=cap)
+    mark("adaptive")
     for name in ADAPTIVE_KERNELS:
         require(adaptive["launches"][name] > 0,
                 f"kernel {name} was not launched in the adaptive run")
@@ -2258,11 +2750,14 @@ def main(argv) -> int:
     launches = {name: (main if name in MAIN_KERNELS else adaptive)
                 ["launches"][name] for name in ADAPTIVE_KERNELS}
     recs, forms = shapes_phase(cap, launches,
-                               adaptive["segment_sum_by_form"])
+                               adaptive["segment_sum_by_form"],
+                               main["rank_probe_by_form"])
     recs += bench_recs
     log("[shapes] level probes of the two store runs: "
         + json.dumps(cap.levels))
+    mark("shapes")
     parity_phase()
+    mark("parity")
     crash_phase()
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"other_forms": forms}))

@@ -16,7 +16,8 @@ device once, through the store's ``DeviceCache``; per call, the query
 columns go up and the results come back, with one wait for the card.  A
 lookup's table probes run one launch a level (``level_probe``: every L0
 table at once, then every file of each deeper level at once), over a key
-column and hash column that go up once a lookup (``ProbeKeys``).  On
+column and hash column that go up once a lookup (``ProbeKeys``); a value
+fetch's vSST finds run one launch a batch (``table_find_segments``).  On
 a CUDA device the ops launch the CUDA kernels; on the CPU they run their
 plain torch versions.
 
@@ -179,16 +180,24 @@ def assign_files(store, lvl: int, keys):
 
 
 # ----------------------------------------------------------- value path
-def table_find(store, t, keys):
-    """Kernel-routed ``SSTable.find``; None -> host path."""
+def table_find_segments(store, tables, keys, seg_start, seg_count):
+    """``SSTable.find`` for many tables in one launch: segment s finds the
+    keys ``keys[seg_start[s]:seg_start[s] + seg_count[s]]`` in
+    ``tables[s]`` (every vSST a multi_get or scan reads, its keys grouped
+    on the host).  The call's key count, ``len(keys)``, decides routing;
+    None -> host path.  -> (pos, vids) over the segments' slots, segment
+    after segment: the rank where found and -1 elsewhere, and the table's
+    vid there (0 where not found)."""
     pol = policy_of(store.cfg)
     if not pol.ready(len(keys)):
         return None
     t0 = time.perf_counter()
-    found, rank = to_host(*kernels.rank_probe(to_device(keys, store.device),
-                                              store.dev_cache.get(t.keys)))
+    get = store.dev_cache.get_rows
+    found, rank, vids = to_host(*kernels.rank_probe_segments(
+        to_device(keys, store.device), seg_start, seg_count,
+        [get(t.keys, t.vids) for t in tables], values=True))
     _emit(store, "lookup_probe", t0)
-    return np.where(found, rank, -1)
+    return np.where(found, rank, -1), vids.view(np.uint64)
 
 
 def plan_runs(store, ranks, pos):

@@ -10,10 +10,14 @@ and is handled by the cache layer's batched probe
 (``BlockCache.probe_records``) — that loop is the one per-record step the
 byte-parity contract keeps.
 
-Eligible batches plan through the ``run_coalesce`` kernel
-(``core/accel.py``): one device sort/dedup/run-mark pass over the whole
-(file-rank, position) column in first-occurrence file order, replacing the
-per-file ``np.unique`` + ``np.split`` below with identical output.
+The keys are grouped by vSST once; eligible batches find their records
+in every touched vSST with one routed call (``accel.table_find_segments``:
+one ``rank_probe`` launch over all of them, which also brings back the
+vids the locator check compares) in place of the per-file host loop, and
+plan through the ``run_coalesce`` kernel (``core/accel.py``):
+one device sort/dedup/run-mark pass over the whole (file-rank, position)
+column in first-occurrence file order, replacing the per-file
+``np.unique`` + ``np.split`` below with identical output.
 """
 
 from __future__ import annotations
@@ -36,6 +40,51 @@ def split_runs(posu: np.ndarray, window: int | None) -> list[np.ndarray]:
     return runs
 
 
+def find_records(store, fsel, ksel, vsel, strict: bool):
+    """Every touched vSST's ``find``, the keys grouped by vSST once.
+
+    The vSSTs come in first-occurrence order of ``fsel`` and each vSST's
+    keys in their order in ``ksel`` (a stable argsort of each key's vSST
+    rank: the order ``ksel[fsel == fid]`` gives).  Eligible batches find
+    them in one routed call (``accel.table_find_segments``), which also
+    brings back the vids the strict locator check compares; otherwise a
+    ``find`` a vSST on the host.  Checks the locators (``strict``), or
+    drops the keys not found.  -> (order: the vSSTs' fids, cat_rank,
+    cat_pos: each record's vSST rank and position, vSST after vSST)."""
+    uniq, first, inv = np.unique(fsel, return_index=True,
+                                 return_inverse=True)
+    by_first = np.argsort(first)
+    order = uniq[by_first]                          # first-occurrence order
+    rank = np.empty(len(uniq), np.int64)
+    rank[by_first] = np.arange(len(uniq))
+    seg = rank[inv.reshape(-1)]                     # each key's vSST rank
+    perm = np.argsort(seg, kind="stable")
+    counts = np.bincount(seg, minlength=len(order))
+    starts = np.cumsum(counts) - counts
+    kg, vg = ksel[perm], vsel[perm]
+    tables = [store.version.value_files[fid] for fid in order.tolist()]
+    found = accel.table_find_segments(store, tables, kg, starts, counts)
+    if found is None:
+        got = []
+        # a ``find`` a vSST — structure-bounded  # scavlint: allow-loop
+        for t, a, c in zip(tables, starts.tolist(), counts.tolist()):
+            pos = t.find(kg[a:a + c])
+            if strict:
+                assert (pos >= 0).all() and \
+                    (t.vids[pos] == vg[a:a + c]).all(), "stale locator"
+            got.append(pos)
+        pos = np.concatenate(got)
+    else:
+        pos, vids = found
+        if strict:
+            assert (pos >= 0).all() and (vids == vg).all(), "stale locator"
+    cat_rank = seg[perm]
+    if strict:
+        return order, cat_rank, pos
+    hit = pos >= 0
+    return order, cat_rank[hit], pos[hit]
+
+
 def read_values_batch(store, keys, vids, vfiles, vsizes, cat,
                       strict: bool = False) -> None:
     """Charge the I/O for fetching value records of resolved entries.
@@ -56,29 +105,13 @@ def read_values_batch(store, keys, vids, vfiles, vsizes, cat,
     ok = fids >= 0
     if not ok.any():
         return
-    fsel, ksel, vsel = fids[ok], keys[ok], vids[ok]
-    uniq, first = np.unique(fsel, return_index=True)
-    order = uniq[np.argsort(first)]                 # first-occurrence order
+    order, cat_rank, cat_pos = find_records(store, fids[ok], keys[ok],
+                                            vids[ok], strict)
     window = store.cfg.coalesce_window
-    pos_per_file = []
-    # one ``find`` per unique vSST — structure-bounded  # scavlint: allow-loop
-    for fid in order.tolist():
-        t = store.version.value_files[fid]
-        m = fsel == fid
-        pos = accel.table_find(store, t, ksel[m])
-        if pos is None:
-            pos = t.find(ksel[m])
-        if strict:
-            assert (pos >= 0).all() and (t.vids[pos] == vsel[m]).all(), \
-                "stale locator"
-        else:
-            pos = pos[pos >= 0]
-        pos_per_file.append(pos)
-    cat_rank = np.repeat(np.arange(len(order)),
-                         [len(p) for p in pos_per_file])
-    cat_pos = (np.concatenate(pos_per_file) if pos_per_file
-               else np.zeros(0, np.int64))
     plan = accel.plan_runs(store, cat_rank, cat_pos)
+    if plan is None:
+        pos_per_file = np.split(cat_pos, np.searchsorted(
+            cat_rank, np.arange(1, len(order))))
     # one vSST per unique fid — structure-bounded  # scavlint: allow-loop
     for i, fid in enumerate(order.tolist()):        # first-occurrence order
         t = store.version.value_files[fid]

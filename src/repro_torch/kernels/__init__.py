@@ -4,9 +4,10 @@ merge, partition and paged-gather work of the kernel benchmark, each
 beside its plain torch version.
 
 ``KERNELS`` lists the wrappers; each counts its launches in ``.launches``
-(``lookup_probe_segments`` on ``lookup_probe``, ``sketch_estimate`` on
-``gather_min64`` and ``sketch_add`` on ``segment_sum``: each is another
-form of that kernel; ``sketch_add`` also keeps its own count).
+(``lookup_probe_segments`` on ``lookup_probe``, ``rank_probe_segments`` on
+``rank_probe``, ``sketch_estimate`` on ``gather_min64`` and ``sketch_add``
+on ``segment_sum``: each is another form of that kernel;
+``rank_probe_segments`` and ``sketch_add`` also keep their own counts).
 The wrappers run the plain version for CPU tensors and the CUDA kernel for
 CUDA tensors (``common.library()`` builds it on first use).
 """
@@ -17,7 +18,8 @@ from .lookup_probe import (count_le, count_le_ref, interval_rank,
                            interval_rank_ref, lookup_probe,
                            lookup_probe_ref, lookup_probe_segments,
                            lookup_probe_segments_ref, rank_probe,
-                           rank_probe_ref)
+                           rank_probe_ref, rank_probe_segments,
+                           rank_probe_segments_ref)
 from .merge import merge_dedup, merge_dedup_ref
 from .paged_gather import page_gather, page_gather_ref
 from .partition import hot_cold_partition, hot_cold_partition_ref
@@ -37,6 +39,7 @@ __all__ = ["KERNELS", "bloom_build", "bloom_build_ref", "bloom_probe",
            "interval_rank_ref", "lookup_probe", "lookup_probe_ref",
            "lookup_probe_segments", "lookup_probe_segments_ref",
            "merge_dedup", "merge_dedup_ref", "page_gather", "page_gather_ref",
-           "rank_probe", "rank_probe_ref", "run_coalesce", "run_coalesce_ref",
+           "rank_probe", "rank_probe_ref", "rank_probe_segments",
+           "rank_probe_segments_ref", "run_coalesce", "run_coalesce_ref",
            "segment_sum", "segment_sum_ref", "sketch_add", "sketch_add_ref",
            "sketch_estimate", "sketch_estimate_ref"]

@@ -162,7 +162,9 @@ def build_library() -> Path:
 _P, _I64, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 _SIGNATURES = {
     # name: argument types; every function returns its cudaError_t
-    "rank_probe": (_P, _I64, _P, _I64, _P, _P, _P),
+    "rank_probe": (_P, _I64, _P, _I64, _P, _P, _I64, _I64, _P),
+    "rank_probe_segments": (_P, _I64, _P, _I64, _I64, _I64, _I64, _P, _P,
+                            _P, _P),
     "lookup_probe": (_P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _P, _I64,
                      _P),
     "lookup_probe_level": (_P, _I64, _P, _I64, _P, _I64, _I64, _I64, _I64,
@@ -176,7 +178,8 @@ _SIGNATURES = {
     "sketch_estimate": (_P, _I64, _I64, _I64, _I64, _P, _P, _I64, _P, _P),
     "gc_lookup": (_P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P),
     "bloom_probe": (_P, _I64, _P, _I64, _I64, _P, _P),
-    "merge_dedup": (_P, _P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P),
+    "merge_dedup": (_P, _P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _I64,
+                    _P),
     "hot_cold_partition": (_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P),
     "page_gather": (_P, _I64, _P, _I64, _I64, _P, _P),
 }
@@ -193,7 +196,8 @@ def library() -> ctypes.CDLL:
     lib.scav_error_string.argtypes = [ctypes.c_int]
     lib.scav_error_string.restype = ctypes.c_char_p
     for name in ("scav_smem_sort_cap", "scav_partition_tile",
-                 "scav_probe_tile_words", "scav_count_le_smem_files"):
+                 "scav_probe_tile_words", "scav_count_le_smem_files",
+                 "scav_merge_threads"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int64
     lib.scav_stream_sync.argtypes = [_P]
@@ -221,6 +225,13 @@ def partition_tile() -> int:
     """Records per tile of the partition passes (the library's constant);
     ``hot_cold_partition`` needs one int64 of scratch per tile."""
     return int(library().scav_partition_tile())
+
+
+@functools.lru_cache(maxsize=None)
+def merge_threads() -> int:
+    """Threads a CTA of ``merge_dedup`` (the library's constant); a CTA
+    merges a tile of that many rows times the rows a thread merges."""
+    return int(library().scav_merge_threads())
 
 
 @functools.lru_cache(maxsize=None)
@@ -326,11 +337,21 @@ class DeviceCache:
 
     def get(self, host_arr: np.ndarray) -> torch.Tensor:
         """int64 device tensor of ``host_arr``'s (u64 or i64) values."""
-        key = id(host_arr)
+        return self._get(host_arr, (host_arr,))
+
+    def get_rows(self, first: np.ndarray, *rest: np.ndarray) -> torch.Tensor:
+        """(1 + len(rest), n) int64 device tensor of equal-length columns
+        of one table (its keys first, then columns that live as long),
+        kept as long as ``first``."""
+        return self._get(first, (first, *rest))
+
+    def _get(self, first, cols) -> torch.Tensor:
+        key = id(first) if len(cols) == 1 else (id(first), len(cols))
         ent = self._cache.get(key)
-        if ent is not None and ent[0]() is host_arr:
+        if ent is not None and ent[0]() is first:
             return ent[1]
-        dev = to_device(host_arr, self.device)
-        self._cache[key] = (weakref.ref(host_arr), dev)
-        weakref.finalize(host_arr, self._cache.pop, key, None)
+        dev = to_device(cols[0] if len(cols) == 1 else np.stack(
+            [np.asarray(c).view(np.int64) for c in cols]), self.device)
+        self._cache[key] = (weakref.ref(first), dev)
+        weakref.finalize(first, self._cache.pop, key, None)
         return dev

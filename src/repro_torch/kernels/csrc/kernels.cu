@@ -14,7 +14,8 @@
 // O(Q*N) compare-reduces, one-hot word fetches and a bitonic network over
 // u32 lanes, shaped by the TPU's lack of a per-lane gather.  Hopper
 // gathers natively and has 64-bit integers, so each probe here is one
-// thread per query running a binary search over the run in global memory.
+// thread per query running a binary search, over fences of the run staged
+// in shared memory where the run is long enough to pay for them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,55 +75,58 @@ __device__ __forceinline__ i64 upper_bound(const u64* __restrict__ run,
 }
 
 // ---------------------------------------------------------------------------
-// rank_probe: replaces rank_probe_pallas (src/repro/kernels/lookup_probe/
-// kernel.py:134).  found = run[rank] == q, rank = #{run < q}.
-//
-// Bound: latency.  Each query is ~log2(N) dependent loads; the work moves
-// only 8 B in and 9 B out per query, so the bytes bound is far below the
-// time of one chain of dependent L2 hits.  Design: one thread per query so
-// the chains of all queries overlap; the run (a few hundred KB at most per
-// table) stays L2-resident across the queries that share its top levels.
-__global__ void rank_probe_kernel(const u64* __restrict__ q, i64 nq,
-                                  const u64* __restrict__ run, i64 n,
-                                  bool* __restrict__ found,
-                                  i64* __restrict__ rank) {
-  i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nq) return;
-  u64 key = q[i];
-  i64 r = lower_bound(run, n, key);
-  rank[i] = r;
-  found[i] = r < n && run[r] == key;
-}
-
-// ---------------------------------------------------------------------------
+// rank_probe: replaces rank_probe_pallas (lookup_probe/kernel.py:134), and
 // lookup_probe: replaces lookup_probe_pallas (lookup_probe/kernel.py:102).
-// may = AND over the query's k filter bits (bit b of the u64 word array is
+// rank = #{run < q} and found = run[rank] == q; lookup_probe adds may =
+// AND over the query's k filter bits (bit b of the u64 word array is
 // (w[b >> 6] >> (b & 63)) & 1, the same bit the reference reads through a
-// little-endian u32 view), plus rank_probe's found and rank.
+// little-endian u32 view).
 //
-// Two forms, one template.  The level form (kLevel) probes many sorted runs
-// in one launch: the store's lookup probes every L0 table, or every file
-// of one deeper level, at once.  Each CTA takes one tile of one segment
-// (ProbeTile: its file's run and filter, the first row and output slot,
-// the count), reads its keys through a row index into the call's key
-// column, and computes its bit indices on the card as kraw[j, row] % nbits
-// (u64) from the raw hash column that goes up once per lookup.  The table
-// form (the (queries, run, bit_idx, words) contract) is one file passed by
-// value, tiles implied by blockIdx, bit indices given.
+// Each kernel has two forms: over one run (rank_probe's run form, the
+// memtable probe; lookup_probe's table form) or over many in one launch
+// (kLevel / kSegments: lookup_probe's level form, every L0 table or every
+// file of one deeper level; rank_probe's segmented form, every vSST a
+// multi_get or scan reads).  Each CTA of a many-run form takes one tile of
+// one segment (ProbeTile: its file's run and filter, the first row and
+// output slot, the count).  The level form reads its keys through a row
+// index into the call's key column and computes its bit indices on the
+// card as kraw[j, row] % nbits (u64) from the raw hash column that goes
+// up once per lookup; the segmented form's keys arrive grouped, a tile's
+// from its first row on.  The one-run forms pass their file by value,
+// tiles implied by blockIdx, and the table form its bit indices given.
 //
 // Bound: latency.  A query's work is a chain of dependent loads; its bytes
 // are a few sectors, so the bytes bound is far below one chain of L2 hits.
-// The first port ran ~log2(N) ~ 14 dependent global loads a query and one
-// launch a table.  Design: each CTA stages its file's fence keys (every
-// 2^shift-th key, at most kMaxFences: ~3 KB at stride 32 for a 12k-key
-// run) in shared memory; a thread searches the fences there, then only
-// the window between two fences in global memory (shift + 1 loads).  The
-// k filter-word gathers issue before the barrier, so they overlap the
+// The first port ran ~log2(N) dependent global loads a query (~10 for a
+// memtable, ~14 for a level's file) and one launch a table or vSST.
+// Design: each CTA stages every 2^shift-th key of its run (the fences, at
+// most kMaxFences: ~3 KB at stride 32 for a 12k-key file) in shared
+// memory; a thread searches the fences there, then only the window
+// between two fences in global memory (shift loads).  lookup_probe's k
+// filter-word gathers issue before the barrier, so they overlap the
 // staging and the search.  A tile carries its file's descriptor, so a CTA
 // reads its work in one round trip; the modulo by nbits is a multiply by
 // the file's magic (FastMod), not a 64-bit division on the chain.  rank =
 // #{run < q}: with f = #{fences < q}, rank is 0 when f = 0, else in
-// ((f-1)*stride, f*stride].
+// ((f-1)*stride, f*stride].  rank_probe's run form searches a run of a
+// few keys in device memory (rank_search_kernel): staging so short a run
+// costs more than its search, and the staged kernel with a branch to that
+// search took ~0.1 us more than this kernel at runs of 1 to 32 keys
+// (PERF.md §6).
+
+// rank_probe's run form over a run of a few keys: one thread a query, a
+// binary search in device memory.
+__global__ void rank_search_kernel(const u64* __restrict__ q, i64 nq,
+                                   const u64* __restrict__ run, i64 n,
+                                   bool* __restrict__ found,
+                                   i64* __restrict__ rank) {
+  const i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nq) return;
+  const u64 key = q[i];
+  const i64 r = lower_bound(run, n, key);
+  rank[i] = r;
+  found[i] = r < n && run[r] == key;
+}
 
 // x % d for a divisor fixed per call: Granlund and Montgomery's unsigned
 // division by an invariant integer (PLDI 1994, fig. 4.1), l = ceil(log2 d),
@@ -139,11 +143,12 @@ __device__ __forceinline__ u64 fast_mod(u64 x, const FastMod& f) {
   return x - q * f.d;
 }
 
-struct ProbeTile {     // one CTA's queries: rows[row .. row + count) into
-  const u64* run;      // output slots [out .. out + count) against the run
-  i64 n;               // and filter of one file (the filter's nbits and its
-  const u64* words;    // FastMod magic in bits)
-  FastMod bits;
+struct ProbeTile {     // one CTA's queries: rows[row .. row + count) (or
+  const u64* run;      // keys[row .. row + count)) into output slots
+  i64 n;               // [out .. out + count) against the run and filter
+  const u64* words;    // of one file (the filter's nbits and its FastMod
+  FastMod bits;        // magic in bits; rank_probe's tiles hold no filter,
+                       // words its run's values or null)
   i64 row;
   i64 out;
   i64 count;
@@ -154,6 +159,26 @@ static_assert(sizeof(ProbeTile) == kTileWords * sizeof(i64),
 
 constexpr int kMaxFences = 2048;   // 16 KB of fence keys a CTA
 constexpr int kPrefetchK = 8;      // filter words gathered before the search
+// global loads a thread issues before it uses the first of them (a loop
+// over a column would otherwise wait out one load's latency an element)
+constexpr int kLoadBatch = 8;
+
+// #{run < q} over n >= 0 ascending words in shared memory, in
+// ceil(log2 n) steps whatever q is.  The window [base, base + len) holds
+// the answer's last step: every word before base is < q, every word from
+// base + len on is >= q; a step halves the window by one compare and a
+// select.
+__device__ __forceinline__ i64 lower_bound_fixed(const u64* run, i64 n,
+                                                 u64 q) {
+  if (n == 0) return 0;
+  const u64* base = run;
+  while (n > 1) {
+    const i64 half = n >> 1;
+    base = base[half] < q ? base + half : base;
+    n -= half;
+  }
+  return (base - run) + (*base < q ? 1 : 0);
+}
 
 template <bool kLevel>
 __device__ __forceinline__ u64 probe_bit(const u64* __restrict__ hashes,
@@ -232,6 +257,67 @@ lookup_probe_kernel(const u64* __restrict__ keys, i64 nkeys,
   found[slot] = r < t.n && t.run[r] == key;
 }
 
+// rank_probe's run and segmented forms: lookup_probe's staging and search
+// without the filter, the fence loads issued before their stores, a
+// fixed-step search of the fences, and found read from a fence where the
+// rank lands on one.  The segmented form's tiles (kSegments) read keys
+// [row, row + count), and with `val` set write the run's value at each
+// key found (t.words: the values, one a run key), 0 elsewhere.  The
+// fences live in dynamic shared memory sized by the launch (fence_bytes):
+// a vSST's few hundred bytes in place of kMaxFences' 16 KB.
+template <bool kSegments>
+__global__ void __launch_bounds__(1024)
+rank_probe_kernel(const u64* __restrict__ keys,
+                  const ProbeTile* __restrict__ tiles, ProbeTile one,
+                  int shift, bool* __restrict__ found,
+                  i64* __restrict__ rank, i64* __restrict__ val) {
+  extern __shared__ u64 fences[];
+  ProbeTile t;
+  if (kSegments) {
+    t = tiles[blockIdx.x];
+  } else {
+    t = one;
+    t.row = t.out = (i64)blockIdx.x * blockDim.x;
+    t.count = one.count - t.row < blockDim.x ? one.count - t.row
+                                             : (i64)blockDim.x;
+  }
+  const bool active = threadIdx.x < t.count;
+  const u64 key = active ? keys[t.row + threadIdx.x] : 0ull;
+  while (((t.n + (1ll << shift) - 1) >> shift) > kMaxFences) ++shift;
+  const i64 nf = (t.n + (1ll << shift) - 1) >> shift;
+  for (i64 j0 = threadIdx.x; j0 < nf; j0 += (i64)blockDim.x * kLoadBatch) {
+    u64 v[kLoadBatch];
+#pragma unroll
+    for (int u = 0; u < kLoadBatch; ++u) {     // the loads, then the stores
+      const i64 j = j0 + (i64)u * blockDim.x;
+      if (j < nf) v[u] = t.run[j << shift];
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadBatch; ++u) {
+      const i64 j = j0 + (i64)u * blockDim.x;
+      if (j < nf) fences[j] = v[u];
+    }
+  }
+  __syncthreads();
+  if (!active) return;
+  const i64 slot = t.out + threadIdx.x;
+  const i64 f = lower_bound_fixed(fences, nf, key);     // #{fences < key}
+  i64 r = 0;
+  if (f > 0) {
+    const i64 a = ((f - 1) << shift) + 1;
+    const i64 b = (f << shift) < t.n ? (f << shift) : t.n;
+    r = a + lower_bound(t.run + a, b - a, key);
+  }
+  // rank f << shift is fence f (run[r] >= key there, read in shared
+  // memory); a rank inside the window was a window key
+  const bool hit = r < t.n &&
+                   (r == (f << shift) ? fences[f] : t.run[r]) == key;
+  found[slot] = hit;
+  rank[slot] = r;
+  if (kSegments && val != nullptr)
+    val[slot] = hit ? (i64)t.words[r] : 0;
+}
+
 // ---------------------------------------------------------------------------
 // count_le: replaces count_le_pallas (lookup_probe/kernel.py:158).
 // cnt = #{mins <= q} (searchsorted side='right') over a level's file mins.
@@ -258,9 +344,6 @@ constexpr i64 kCountLeSmemFiles = 2048;   // 32 KB of mins and maxs a CTA
 // below this many files the global-memory search, a load or two a query,
 // was faster than staging at 4 files and fewer (PERF.md §6)
 constexpr i64 kCountLeSmemMinFiles = 8;
-// global loads a thread issues before it uses the first of them (a loop
-// over a column would otherwise wait out one load's latency an element)
-constexpr int kLoadBatch = 8;
 
 // #{run <= q} over n >= 0 ascending words in shared memory, in
 // ceil(log2 n) steps whatever q is.  The window [base, base + len) holds
@@ -899,59 +982,169 @@ __global__ void bloom_probe_kernel(const u32* __restrict__ q, i64 nq,
 // in (key asc, seq desc) order, ties kept in input order (A first), and
 // keep true where a row's key differs from the previous row's.
 //
-// Bound: latency.  One binary search of ~log2(N) dependent loads per row.
-// The TPU kernel ran a bitonic merge network over power-of-two halves
-// padded with key 0xFFFFFFFF; here each row finds its output position by
-// its co-rank in the other run (merge path), so there is no padding and
-// no key is reserved: an A row lands at i + #{B < a}, a B row at
-// j + #{A <= b}, in the order of the packed u64 (key << 32 | ~seq).  A
-// second pass marks keep from the merged keys.  Each run must already be
-// in that order (the wrapper's precondition).
+// Bound: bytes (12 B read and 13 B written a row: 25 MB, 7.8 us at
+// 2 x 2^19).  The TPU kernel ran a bitonic merge network over power-of-two
+// halves padded with key 0xFFFFFFFF.  The first port placed each row by a
+// binary search of its co-rank in the other run (~19 dependent steps of
+// two loads a row), scattered its three words to that position, and marked
+// keep in a second launch that read the keys back: 4x its bound, the time
+// in the search chains.  Design: a merge path in one launch.  The output
+// is cut into tiles, one a CTA.  Two warps find where
+// the tile's first row and the next tile's lie on the merge path (i rows
+// of A and d - i of B before output row d), by a 32-way search: each lane
+// tests one of 32 evenly spaced candidates, a ballot keeps the interval,
+// so ~4 rounds of independent loads where a binary search makes 19
+// dependent ones.  The CTA loads the tile's two input windows coalesced
+// into shared memory, each thread merges kItems rows there from its
+// own split of the tile (a binary search in shared memory), writing only
+// each row's source index, and the CTA writes keys, seqs, vids and keep
+// coalesced (kItems rows a thread, so a tile of kMergeThreads * kItems
+// rows: the wrapper takes fewer for a short merge, to spread it over more
+// SMs).  keep compares each row's key with the previous row's; the
+// tile's first row with the row just before the tile, the later in merge
+// order of A[i - 1] and B[d - i - 1].  No padding, no key reserved.  Rows
+// are ordered by the packed u64 (key << 32 | ~seq), an A row before a B
+// row that packs equal (the ties' input order): A[m] is among the first d
+// rows iff A[m] <= B[d - m - 1].  Each run must already be in that order
+// (the wrapper's precondition).
+constexpr int kMergeThreads = 256;
+constexpr int kMergeMaxItems = 8;              // rows a thread merges, at most
+static_assert(kMergeThreads * kMergeMaxItems <= 65536,
+              "source indices are u16");
+
 __device__ __forceinline__ u64 merge_key(const u32* __restrict__ keys,
                                          const u32* __restrict__ seqs,
                                          i64 i) {
   return ((u64)keys[i] << 32) | (u64)(~seqs[i]);
 }
 
-template <bool kInclusive>
-__device__ __forceinline__ i64 co_rank(const u32* __restrict__ keys,
-                                       const u32* __restrict__ seqs, i64 n,
-                                       u64 v) {
-  i64 lo = 0, hi = n;
+__device__ __forceinline__ u64 smem_merge_key(const u32* keys,
+                                              const u32* seqs, int i) {
+  return ((u64)keys[i] << 32) | (u64)(~seqs[i]);
+}
+
+// #{A rows among the merge's first d rows}, by one warp (every lane gets
+// it).  The predicate "A[m] is among them" holds for a prefix of m; the
+// answer lies in [lo, hi], and a round probes 32 candidates spaced s
+// apart, keeping the gap between the last true and the first false.
+__device__ i64 merge_split(const u32* __restrict__ ak,
+                           const u32* __restrict__ as, i64 na,
+                           const u32* __restrict__ bk,
+                           const u32* __restrict__ bs, i64 nb, i64 d) {
+  i64 lo = d > nb ? d - nb : 0, hi = d < na ? d : na;
+  const int lane = threadIdx.x & 31;
   while (lo < hi) {
-    i64 mid = (lo + hi) >> 1;
-    u64 m = merge_key(keys, seqs, mid);
-    if (kInclusive ? m <= v : m < v) lo = mid + 1; else hi = mid;
+    const i64 s = (hi - lo + 31) >> 5;
+    const i64 m = lo + (lane + 1) * s - 1;
+    const bool in = m < hi &&
+                    merge_key(ak, as, m) <= merge_key(bk, bs, d - m - 1);
+    const i64 c = __popc(__ballot_sync(0xffffffffu, in));
+    const i64 first_out = lo + (c + 1) * s - 1;
+    lo += c * s;
+    if (first_out < hi) hi = first_out;
   }
   return lo;
 }
 
-__global__ void merge_scatter_kernel(
-    const u32* __restrict__ ak, const u32* __restrict__ as,
-    const u32* __restrict__ av, i64 na, const u32* __restrict__ bk,
-    const u32* __restrict__ bs, const u32* __restrict__ bv, i64 nb,
-    u32* __restrict__ ok, u32* __restrict__ os, u32* __restrict__ ov) {
-  i64 t = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= na + nb) return;
-  i64 p;
-  u32 key, seq, vid;
-  if (t < na) {
-    key = ak[t]; seq = as[t]; vid = av[t];
-    p = t + co_rank<false>(bk, bs, nb, merge_key(ak, as, t));
-  } else {
-    i64 j = t - na;
-    key = bk[j]; seq = bs[j]; vid = bv[j];
-    p = j + co_rank<true>(ak, as, na, merge_key(bk, bs, j));
+template <int kItems>
+__global__ void __launch_bounds__(kMergeThreads)
+merge_path_kernel(const u32* __restrict__ ak, const u32* __restrict__ as,
+                  const u32* __restrict__ av, i64 na,
+                  const u32* __restrict__ bk, const u32* __restrict__ bs,
+                  const u32* __restrict__ bv, i64 nb, u32* __restrict__ ok,
+                  u32* __restrict__ os, u32* __restrict__ ov,
+                  bool* __restrict__ keep) {
+  constexpr int kTile = kMergeThreads * kItems;
+  // the tile's A window at [0, la), its B window at [la, la + lb)
+  __shared__ u32 sk[kTile], ss[kTile], sv[kTile];
+  __shared__ uint16_t src[kTile];
+  __shared__ i64 split[2];
+  __shared__ u32 prev_key;
+  const i64 n = na + nb;
+  const i64 d0 = (i64)blockIdx.x * kTile;
+  const i64 d1 = d0 + kTile < n ? d0 + kTile : n;
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const i64 i = merge_split(ak, as, na, bk, bs, nb, warp ? d1 : d0);
+    if ((threadIdx.x & 31) == 0) split[warp] = i;
   }
-  ok[p] = key;
-  os[p] = seq;
-  ov[p] = vid;
-}
+  __syncthreads();
+  const i64 i0 = split[0], j0 = d0 - i0;
+  const int la = (int)(split[1] - i0), cnt = (int)(d1 - d0);
+  const int lb = cnt - la;
+  if (threadIdx.x == 0 && d0 > 0) {    // the key of the row before the tile
+    if (i0 == 0 || (j0 > 0 && merge_key(ak, as, i0 - 1) <=
+                                  merge_key(bk, bs, j0 - 1)))
+      prev_key = bk[j0 - 1];
+    else
+      prev_key = ak[i0 - 1];
+  }
+  {                                   // coalesced; the loads, then the stores
+    u32 k[kItems], q[kItems], v[kItems];
+#pragma unroll
+    for (int u = 0; u < kItems; ++u) {
+      const int x = threadIdx.x + u * kMergeThreads;
+      if (x < cnt) {
+        const bool fromA = x < la;
+        const i64 g = fromA ? i0 + x : j0 + (x - la);
+        k[u] = fromA ? ak[g] : bk[g];
+        q[u] = fromA ? as[g] : bs[g];
+        v[u] = fromA ? av[g] : bv[g];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kItems; ++u) {
+      const int x = threadIdx.x + u * kMergeThreads;
+      if (x < cnt) {
+        sk[x] = k[u];
+        ss[x] = q[u];
+        sv[x] = v[u];
+      }
+    }
+  }
+  __syncthreads();
 
-__global__ void merge_keep_kernel(const u32* __restrict__ keys, i64 n,
-                                  bool* __restrict__ keep) {
-  i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) keep[i] = i == 0 || keys[i] != keys[i - 1];
+  // this thread's kItems rows: its split of the tile, then the merge
+  const int diag = min((int)threadIdx.x * kItems, cnt);
+  const int end = min(diag + kItems, cnt);
+  int lo = diag > lb ? diag - lb : 0, hi = diag < la ? diag : la;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (smem_merge_key(sk, ss, mid) <=
+        smem_merge_key(sk, ss, la + diag - mid - 1)) lo = mid + 1;
+    else hi = mid;
+  }
+  // A's next row ia < la and B's next row ib < cnt, each exhausted at its
+  // end; a row's packed key is read when it becomes the next
+  int ia = lo, ib = la + (diag - lo);
+  u64 pa = ia < la ? smem_merge_key(sk, ss, ia) : 0;
+  u64 pb = ib < cnt ? smem_merge_key(sk, ss, ib) : 0;
+  for (int o = diag; o < end; ++o) {
+    const bool takeA = ia < la && (ib >= cnt || pa <= pb);
+    const int x = takeA ? ia : ib;
+    src[o] = (uint16_t)x;
+    const int next = x + 1;
+    const u64 p = next < (takeA ? la : cnt) ? smem_merge_key(sk, ss, next)
+                                            : 0;
+    if (takeA) {
+      ia = next;
+      pa = p;
+    } else {
+      ib = next;
+      pb = p;
+    }
+  }
+  __syncthreads();
+
+  for (int o = threadIdx.x; o < cnt; o += kMergeThreads) {
+    const int x = src[o];
+    const u32 key = sk[x];
+    const i64 row = d0 + o;
+    ok[row] = key;
+    os[row] = ss[x];
+    ov[row] = sv[x];
+    keep[row] = row == 0 || key != (o == 0 ? prev_key : sk[src[o - 1]]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1040,6 +1233,20 @@ page_gather_kernel(const int32_t* __restrict__ table,
   for (i64 t = threadIdx.x; t < n; t += blockDim.x) dst[t] = src[t];
 }
 
+// One merge_dedup launch at kItems rows a thread.
+template <int kItems>
+cudaError_t merge_launch(const void* ak, const void* as, const void* av,
+                         i64 na, const void* bk, const void* bs,
+                         const void* bv, i64 nb, void* ok, void* os,
+                         void* ov, void* keep, cudaStream_t stream) {
+  merge_path_kernel<kItems><<<blocks_for(na + nb, kMergeThreads * kItems),
+                              kMergeThreads, 0, stream>>>(
+      (const u32*)ak, (const u32*)as, (const u32*)av, na, (const u32*)bk,
+      (const u32*)bs, (const u32*)bv, nb, (u32*)ok, (u32*)os, (u32*)ov,
+      (bool*)keep);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1056,11 +1263,49 @@ int scav_stream_sync(void* stream) {
   return (int)cudaStreamSynchronize((cudaStream_t)stream);
 }
 
+// The run form; shift: log2 of the fence stride (the kernel widens it for
+// a run of more than kMaxFences fences), negative to search the run in
+// device memory (rank_search_kernel); tile: threads a CTA (<= 1024).
+// Shared memory of rank_probe_kernel's fences for runs of at most nmax
+// keys at stride 2^shift (widened, as the kernel does, to kMaxFences).
+static size_t fence_bytes(i64 nmax, i64 shift) {
+  const i64 nf = (nmax + (1ll << shift) - 1) >> shift;
+  return (size_t)(nf < kMaxFences ? nf : kMaxFences) * sizeof(u64);
+}
+
 int rank_probe(const void* q, i64 nq, const void* run, i64 n, void* found,
-               void* rank, void* stream) {
-  rank_probe_kernel<<<blocks_for(nq, kProbeThreads), kProbeThreads, 0,
-                      (cudaStream_t)stream>>>(
-      (const u64*)q, nq, (const u64*)run, n, (bool*)found, (i64*)rank);
+               void* rank, i64 shift, i64 tile, void* stream) {
+  if (shift < 0) {
+    rank_search_kernel<<<blocks_for(nq, (int)tile), (unsigned)tile, 0,
+                         (cudaStream_t)stream>>>(
+        (const u64*)q, nq, (const u64*)run, n, (bool*)found, (i64*)rank);
+    return (int)cudaGetLastError();
+  }
+  ProbeTile one = {};
+  one.run = (const u64*)run;
+  one.n = n;
+  one.count = nq;
+  rank_probe_kernel<false><<<blocks_for(nq, (int)tile), (unsigned)tile,
+                             fence_bytes(n, shift), (cudaStream_t)stream>>>(
+      (const u64*)q, nullptr, one, (int)shift, (bool*)found, (i64*)rank,
+      nullptr);
+  return (int)cudaGetLastError();
+}
+
+// The segmented form.  tiles: ntiles ProbeTiles (kTileWords i64 each, no
+// filter; words the run's values or null), on the card, each reading keys
+// [row, row + count); nmax: the longest run; tile: threads a CTA
+// (<= 1024); shift: log2 of the fence stride (>= 0, widened as for the
+// run form); val: the values at the keys found, or null for none.
+int rank_probe_segments(const void* keys, i64 nkeys, const void* tiles,
+                        i64 ntiles, i64 nmax, i64 tile, i64 shift,
+                        void* found, void* rank, void* val, void* stream) {
+  const ProbeTile none = {};
+  rank_probe_kernel<true><<<(unsigned)ntiles, (unsigned)tile,
+                            fence_bytes(nmax, shift),
+                            (cudaStream_t)stream>>>(
+      (const u64*)keys, (const ProbeTile*)tiles, none, (int)shift,
+      (bool*)found, (i64*)rank, (i64*)val);
   return (int)cudaGetLastError();
 }
 
@@ -1244,21 +1489,24 @@ int bloom_probe(const void* q, i64 nq, const void* words, i64 nbits, i64 k,
   return (int)cudaGetLastError();
 }
 
-// na + nb >= 1.  Two launches: the co-rank scatter, then the keep marks.
+// Threads a CTA of the merge (a tile is items of them a thread).
+i64 scav_merge_threads() { return kMergeThreads; }
+
+// na + nb >= 1; items: rows a thread merges, 1 or 8.  One launch:
+// a CTA a tile of kMergeThreads * items output rows.
 int merge_dedup(const void* ak, const void* as, const void* av, i64 na,
                 const void* bk, const void* bs, const void* bv, i64 nb,
-                void* ok, void* os, void* ov, void* keep, void* stream) {
+                void* ok, void* os, void* ov, void* keep, i64 items,
+                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const i64 n = na + nb;
-  merge_scatter_kernel<<<blocks_for(n, kProbeThreads), kProbeThreads, 0,
-                         st>>>(
-      (const u32*)ak, (const u32*)as, (const u32*)av, na, (const u32*)bk,
-      (const u32*)bs, (const u32*)bv, nb, (u32*)ok, (u32*)os, (u32*)ov);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  merge_keep_kernel<<<blocks_for(n, kProbeThreads), kProbeThreads, 0, st>>>(
-      (const u32*)ok, n, (bool*)keep);
-  return (int)cudaGetLastError();
+  switch (items) {
+    case 1: return (int)merge_launch<1>(ak, as, av, na, bk, bs, bv, nb, ok,
+                                        os, ov, keep, st);
+    case kMergeMaxItems:
+      return (int)merge_launch<kMergeMaxItems>(ak, as, av, na, bk, bs, bv,
+                                               nb, ok, os, ov, keep, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Records per tile of the partition passes; scratch holds one int64 per

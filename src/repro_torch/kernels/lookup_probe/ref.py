@@ -76,6 +76,29 @@ def lookup_probe_segments_ref(keys: torch.Tensor, kraw: torch.Tensor,
     return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
 
 
+def rank_probe_segments_ref(keys: torch.Tensor, seg_start, seg_count,
+                            runs, *, values: bool = False):
+    """The segmented form: ``rank_probe_ref`` once per segment, segment s
+    on ``keys[seg_start[s]:seg_start[s] + seg_count[s]]`` against
+    ``runs[s]``; with ``values`` each run is (2, n), the run then its
+    values, and the value at each key found (0 elsewhere) comes back too.
+    -> (found, rank[, val]), segment after segment."""
+    dev = keys.device
+    outs = [(torch.zeros(0, dtype=torch.bool, device=dev),
+             torch.zeros(0, dtype=torch.int64, device=dev),
+             torch.zeros(0, dtype=torch.int64, device=dev))]
+    for s, r in enumerate(runs):
+        a = int(seg_start[s])
+        run = r[0] if values else r
+        found, rank = rank_probe_ref(keys[a:a + int(seg_count[s])], run)
+        n = run.shape[0]
+        val = (torch.where(found, r[1][rank.clamp(max=n - 1)], 0)
+               if values and n else torch.zeros_like(rank))
+        outs.append((found, rank, val))
+    cols = tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+    return cols if values else cols[:2]
+
+
 def count_le_ref(queries: torch.Tensor, mins: torch.Tensor) -> torch.Tensor:
     """#{mins <= query} per query (searchsorted side='right').  -> (Q,)."""
     return bound_search(mins, queries, right=True)

@@ -180,7 +180,8 @@ def mocked_library(monkeypatch):
                         lambda a, device: torch.from_numpy(a))
     monkeypatch.setattr(probe_ops, "probe_tile_words", lambda: 9)
     for name in ("rank_probe_ref", "lookup_probe_ref", "count_le_ref",
-                 "interval_rank_ref", "lookup_probe_segments_ref"):
+                 "interval_rank_ref", "lookup_probe_segments_ref",
+                 "rank_probe_segments_ref"):
         monkeypatch.setattr(probe_ops, name, plain)
     monkeypatch.setattr(coalesce_ops, "run_coalesce_ref", plain)
     for name in ("segment_sum_ref", "gather_min64_ref",
@@ -188,8 +189,9 @@ def mocked_library(monkeypatch):
         monkeypatch.setattr(segment_ops, name, plain)
     for name, (mod, _) in OFFPATH.items():
         monkeypatch.setattr(mod, f"{name}_ref", plain)
-    for fn in (probe_ops.rank_probe, probe_ops.lookup_probe,
-               probe_ops.count_le, coalesce_ops.run_coalesce,
+    for fn in (probe_ops.rank_probe, probe_ops.rank_probe_segments,
+               probe_ops.lookup_probe, probe_ops.count_le,
+               coalesce_ops.run_coalesce,
                segment_ops.segment_sum, segment_ops.gather_min64,
                segment_ops.sketch_add,
                *(getattr(mod, name) for name, (mod, _) in OFFPATH.items())):
@@ -197,11 +199,15 @@ def mocked_library(monkeypatch):
     return launched
 
 
-# the level form of lookup_probe and the key forms of gather_min64 and
-# segment_sum, which the store calls: wrapper -> (module, the library
-# function it launches, the wrapper whose count it adds to, CUDA-looking
-# operands)
+# the level form of lookup_probe, the segmented form of rank_probe and the
+# key forms of gather_min64 and segment_sum, which the store calls:
+# wrapper -> (module, the library function it launches, the wrapper whose
+# count it adds to, CUDA-looking operands)
 FORMS = {
+    "rank_probe_segments": (probe_ops, "rank_probe_segments", "rank_probe",
+                            lambda: (
+        _cuda_looking([3, 1, 2]), np.array([0, 2]), np.array([2, 1]),
+        [_cuda_looking([1, 2, 5, 9]), _cuda_looking([3])])),
     "lookup_probe_segments": (probe_ops, "lookup_probe_level",
                               "lookup_probe", lambda: (
         _cuda_looking([3, 1, 2]), _cuda_looking(np.zeros((7, 3))),
@@ -251,6 +257,25 @@ def test_cuda_operands_launch_the_kernel(mocked_library, kernel):
     fn(*args)
     assert mocked_library == [kernel]
     assert fn.launches == 1
+
+
+def test_rank_probe_segments_with_values_launches_the_kernel(
+        mocked_library):
+    """The value fetch's call (each run a key row and a value row) on
+    CUDA operands launches the segmented kernel and brings back a third
+    column, the plain version never reached."""
+    out = probe_ops.rank_probe_segments(
+        _cuda_looking([3, 1, 2]), np.array([0, 2]), np.array([2, 1]),
+        [_cuda_looking([[1, 2, 5, 9], [7, 7, 7, 7]]),
+         _cuda_looking([[3], [8]])], values=True)
+    assert len(out) == 3 and out[2].shape == (3,)
+    assert mocked_library == ["rank_probe_segments"]
+    assert probe_ops.rank_probe.launches == 1
+    assert probe_ops.rank_probe_segments.launches == 1
+    with pytest.raises(ValueError, match="always stages fences"):
+        probe_ops.rank_probe_segments(
+            _cuda_looking([3]), np.array([0]), np.array([1]),
+            [_cuda_looking([1, 2, 5, 9])], _stride=0)
 
 
 def test_interval_rank_on_cuda_launches_count_le(mocked_library):

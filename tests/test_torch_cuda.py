@@ -457,3 +457,164 @@ def test_benchmark_kernels_match_plain(cuda, kernel):
         if not isinstance(got, tuple):
             got, want = (got,), (want,)
         _equal(got, want)
+
+
+# rank_probe's run form: runs either side of the staging threshold, at the
+# whole-run staging cap and past it, at the fence cap of the wrapper's
+# stride and past it (the fence stride widens), and long; the stride the
+# wrapper picks (None), none (0), and given ones
+@pytest.mark.parametrize("stride", [None, 0, 1, 8])
+@pytest.mark.parametrize("n", [0, 1, 2, "min-1", "min", 631, 2047, 2048,
+                               2049, 4097, "cap", "cap+1", 20000])
+def test_rank_probe_run_form_matches_plain(cuda, n, stride):
+    from repro_torch.kernels.lookup_probe.ops import (RUN_FENCE_STRIDE,
+                                                     RUN_STAGE_MIN)
+    if isinstance(n, str) and n.startswith("cap"):   # 2,048 fences
+        n = 2048 * RUN_FENCE_STRIDE + (n == "cap+1")
+    elif isinstance(n, str):
+        n = RUN_STAGE_MIN - (n == "min-1")
+    rng = np.random.default_rng(n * 7 + (stride or 0))
+    run = np.unique(rng.integers(1, 2**64 - 2, n, dtype=np.uint64))
+    qs = np.concatenate([run, run + np.uint64(1), run - np.uint64(1),
+                         np.array([0, 2**63, 2**64 - 1], np.uint64),
+                         rng.integers(0, 2**64 - 1, 10096, dtype=np.uint64,
+                                      endpoint=True)])
+    qt, rt = _col(qs, cuda), _col(run, cuda)
+    n0 = K.rank_probe.launches
+    got = K.rank_probe(qt, rt, _stride=stride)
+    assert K.rank_probe.launches == n0 + 1
+    _equal(got, K.rank_probe_ref(qt, rt))
+    assert (got[1].cpu().numpy() == np.searchsorted(run, qs)).all()
+
+
+# rank_probe's segmented form: (run sizes, queries a segment); empty runs
+# and segments, one-key runs, runs at the staging cap and at the fence cap
+# of the wrapper's stride and past it, vSST finds (hundreds of ~2,600-key
+# runs, ~10 queries each, and the main run's 1,530 runs of 631 keys, ~3
+# queries each), and a segment past one tile
+RANK_SEGMENT_CASES = {
+    "empty_runs_and_segments": ([0, 30, 0, 40, 1], [5, 10, 3, 0, 4]),
+    "one_key_runs": ([1] * 50, [3] * 50),
+    "staging_cap": ([2047, 2048, 2049], [700, 700, 700]),
+    "fence_cap": ([2048 * 8, 2048 * 8 + 1, 2048 * 4 + 1], [500, 500, 500]),
+    "vsst_finds": ([2600] * 400, [10] * 400),
+    "vsst_finds_main_run": ([631] * 1530, [3] * 1530),
+    "past_one_tile": ([20000, 5], [3000, 1500]),
+    "many_segments": ([30] * 1200, [4] * 1200),
+}
+
+
+@pytest.mark.parametrize("tile,stride", [(None, None), (32, 2), (1024, 1),
+                                         (64, 64), (None, 4)])
+@pytest.mark.parametrize("case", sorted(RANK_SEGMENT_CASES))
+def test_rank_probe_segments_matches_plain(cuda, case, tile, stride):
+    sizes, counts = RANK_SEGMENT_CASES[case]
+    rng = np.random.default_rng(len(case) * 13)
+    runs = [np.unique(rng.integers(0, 2**64 - 1, n, dtype=np.uint64,
+                                   endpoint=True)) for n in sizes]
+    qs = []
+    for run, c in zip(runs, counts):
+        q = rng.integers(0, 2**64 - 1, c, dtype=np.uint64, endpoint=True)
+        if len(run) and c:
+            q[: c // 2] = run[rng.integers(0, len(run), c // 2)]
+            q[: min(c, 3)] = np.array([0, 2**64 - 1, run[-1]],
+                                      np.uint64)[: min(c, 3)]
+        qs.append(q)
+    keys = np.concatenate(qs)
+    counts = np.array(counts, np.int64)
+    starts = np.cumsum(counts) - counts
+    args = (_col(keys, cuda), starts, counts, [_col(r, cuda) for r in runs])
+    kw = {} if tile is None else {"_tile": tile}
+    if stride is not None:
+        kw["_stride"] = stride
+    n0, s0 = K.rank_probe.launches, K.rank_probe_segments.launches
+    got = K.rank_probe_segments(*args, **kw)
+    assert K.rank_probe.launches == n0 + 1
+    assert K.rank_probe_segments.launches == s0 + 1
+    _equal(got, K.rank_probe_segments_ref(*args))
+    rank = got[1].cpu().numpy()
+    for s, run in enumerate(runs):
+        seg = slice(starts[s], starts[s] + counts[s])
+        assert (rank[seg] == np.searchsorted(run, keys[seg])).all()
+
+
+@pytest.mark.parametrize("stride", [None, 1])
+@pytest.mark.parametrize("case", sorted(RANK_SEGMENT_CASES))
+def test_rank_probe_segments_values_match_plain(cuda, case, stride):
+    """With each run's values in a second row (the vids the strict
+    locator check compares), at the wrapper's stride and at stride 1: the
+    value at each key found, 0 elsewhere, as the plain version gives
+    it."""
+    sizes, counts = RANK_SEGMENT_CASES[case]
+    rng = np.random.default_rng(len(case) * 17)
+    runs = [np.unique(rng.integers(0, 2**64 - 1, n, dtype=np.uint64,
+                                   endpoint=True)) for n in sizes]
+    vals = [rng.integers(0, 2**64 - 1, len(r), dtype=np.uint64,
+                         endpoint=True) for r in runs]
+    qs = [np.concatenate([r[rng.integers(0, len(r), c // 2)] if len(r)
+                          else np.zeros(0, np.uint64),
+                          rng.integers(0, 2**64 - 1, c - (c // 2 if len(r)
+                                                          else 0),
+                                       dtype=np.uint64, endpoint=True)])
+          for r, c in zip(runs, counts)]
+    counts = np.array([len(q) for q in qs], np.int64)
+    starts = np.cumsum(counts) - counts
+    args = (_col(np.concatenate(qs), cuda), starts, counts,
+            [torch.stack([_col(r, cuda), _col(v, cuda)])
+             for r, v in zip(runs, vals)])
+    kw = {"values": True} | ({} if stride is None else {"_stride": stride})
+    got = K.rank_probe_segments(*args, **kw)
+    assert len(got) == 3
+    _equal(got, K.rank_probe_segments_ref(*args, values=True))
+
+
+def _merge_runs(rng, na, nb, kind):
+    """Sorted runs of unique u32 keys (A's seqs even, B's odd) for the
+    merge's tile edges: ``split``: a key's two copies on either side of a
+    tile boundary; ``shared``: every key in both; ``equal``: every key in
+    both with equal seqs; ``top``: key 0xFFFFFFFF in both."""
+    space = np.arange(4 * (na + nb) + 4, dtype=np.uint32)
+    ak = np.sort(rng.choice(space, na, replace=False))
+    bk = np.sort(rng.choice(space, nb, replace=False))
+    aseq = rng.integers(0, 1 << 30, na).astype(np.uint32) * 2
+    bseq = rng.integers(0, 1 << 30, nb).astype(np.uint32) * 2 + 1
+    if kind == "split":             # pair k at rows 2k - 1 and 2k
+        ak = np.arange(na, dtype=np.uint32)
+        bk = ak[1:nb + 1].copy()
+        bseq = aseq[1:nb + 1] + 1
+    elif kind in ("shared", "equal"):
+        bk = ak.copy()
+        bseq = aseq.copy() if kind == "equal" else aseq + 1
+    elif kind == "top" and na and nb:
+        ak[-1] = bk[-1] = 0xFFFFFFFF
+    return (ak, aseq, ak * 3), (bk, bseq, bk * 5)
+
+
+@pytest.mark.parametrize("items", [None, 1, 8])
+@pytest.mark.parametrize("na,nb,kind", [
+    (0, 1, ""), (1, 0, ""), (0, 4097, ""), (5000, 0, ""), (1, 1, ""),
+    (3, 2044, ""), ("tile", "tile", ""), ("tile-1", "tile+1", ""),
+    (2049, 2047, ""), (12345, 777, ""), (1 << 19, 1 << 19, ""),
+    ("tile+1", "tile", "split"), (4097, 4096, "split"),
+    (3000, 3000, "shared"), (3000, 3000, "equal"), (2500, 1700, "top")])
+def test_merge_dedup_merge_path_matches_plain(cuda, na, nb, kind, items):
+    """At the rows a thread the wrapper picks (None) and at each choice,
+    with runs ending at the chosen tile's boundaries (8 rows a thread's
+    where the wrapper picks)."""
+    from repro_torch.kernels.common import merge_threads, u32_tensor
+    tile = merge_threads() * (items or 8)
+    na, nb = ({"tile": tile, "tile-1": tile - 1, "tile+1": tile + 1}.get(
+        x, x) for x in (na, nb))
+    if kind in ("shared", "equal"):
+        nb = na
+    a, b = _merge_runs(np.random.default_rng(na + 3 * nb), na, nb, kind)
+    if kind == "split":
+        nb = len(b[0])
+    args = tuple(u32_tensor(c, cuda) for c in (*a, *b))
+    n0 = K.merge_dedup.launches
+    got = K.merge_dedup(*args, _items=items)
+    assert K.merge_dedup.launches == n0 + 1
+    _equal(got, K.merge_dedup_ref(*args))
+    keys = got[0].cpu().numpy().view(np.uint32)
+    assert (np.diff(keys.astype(np.int64)) >= 0).all()
+    assert int(got[3].sum()) == len(np.union1d(a[0], b[0]))

@@ -12,8 +12,8 @@ Where the Pallas wrappers' padding changes the answer (a key or query equal
 to a pad value, duplicate keys in a GC-Lookup run) the port follows
 ``ref.py`` and is held against it alone.  The CUDA kernels run only on the
 card (``chip_smoke.py``, ``tests/test_torch_cuda.py``); their placement
-arithmetic (co-rank merge, prefix-count partition) is mirrored in NumPy
-here.
+arithmetic (the tiled merge path, prefix-count partition) is mirrored in
+NumPy here.
 """
 
 from __future__ import annotations
@@ -240,22 +240,61 @@ def _survivors(out):
                       vids[keep].tolist()))
 
 
-def _co_rank_mirror(a, b):
-    """The CUDA kernel's placement, in NumPy: an A row at i + #{B < a}, a
-    B row at j + #{A <= b}, in the order of (key << 32 | ~seq)."""
+MERGE_TILE = 2048           # output rows a CTA of the merge kernel takes
+
+
+def _merge_path_mirror(a, b, tile=MERGE_TILE):
+    """The CUDA kernel's merge path, in NumPy: the output cut into tiles of
+    ``tile`` rows; each tile's split (i rows of A before output row d: A[m]
+    is among them iff A[m] <= B[d - m - 1] in the order of (key << 32 |
+    ~seq)) found by the kernel's 32-way search, the tile's two windows
+    merged (A first on equal packed rows), and keep from each row's key
+    against the previous row's, the tile's first row against the row just
+    before the tile (the later in merge order of A[i - 1] and B[j - 1])."""
     def packed(run):
         k, s = run[0].astype(np.uint64), run[1].astype(np.uint64)
         return (k << np.uint64(32)) | (np.uint64(0xFFFFFFFF) - s)
     pa, pb = packed(a), packed(b)
     na, nb = len(pa), len(pb)
-    pos_a = np.arange(na) + np.searchsorted(pb, pa, side="left")
-    pos_b = np.arange(nb) + np.searchsorted(pa, pb, side="right")
+
+    def split(d):           # the kernel's merge_split, lane by lane
+        lo, hi = max(0, d - nb), min(d, na)
+        while lo < hi:
+            s = (hi - lo + 31) >> 5
+            m = lo + np.arange(1, 33) * s - 1
+            ok = m < hi
+            inside = np.zeros(32, bool)
+            inside[ok] = pa[m[ok]] <= pb[d - m[ok] - 1]
+            c = int(inside.sum())
+            first_out = lo + (c + 1) * s - 1
+            lo += c * s
+            hi = min(hi, first_out)
+        return lo
+
     out = [np.zeros(na + nb, np.uint32) for _ in range(3)]
-    for c in range(3):
-        out[c][pos_a] = a[c]
-        out[c][pos_b] = b[c]
-    keep = np.ones(na + nb, bool)
-    keep[1:] = out[0][1:] != out[0][:-1]
+    keep = np.zeros(na + nb, bool)
+    for d0 in range(0, na + nb, tile):
+        d1 = min(d0 + tile, na + nb)
+        i0, i1 = split(d0), split(d1)
+        j0, j1 = d0 - i0, d1 - i1
+        ia, ib = i0, j0
+        for o in range(d0, d1):
+            take_a = ia < i1 and (ib >= j1 or pa[ia] <= pb[ib])
+            run, x = (a, ia) if take_a else (b, ib)
+            for c in range(3):
+                out[c][o] = run[c][x]
+            ia, ib = (ia + 1, ib) if take_a else (ia, ib + 1)
+        if d0 == 0:
+            prev = None
+        elif i0 == 0 or (j0 > 0 and pa[i0 - 1] <= pb[j0 - 1]):
+            prev = b[0][j0 - 1]
+        else:
+            prev = a[0][i0 - 1]
+        keys = out[0][d0:d1]
+        keep[d0:d1] = keys != np.concatenate(
+            [[keys[0] if prev is None else prev], keys[:-1]])
+        if d0 == 0:
+            keep[0] = True
     return out + [keep]
 
 
@@ -277,7 +316,7 @@ def test_merge_dedup_matches_reference(na, nb):
     got = _merge_port(a, b)
     equal(got, _merge_oracle(a, b))                   # row for row
     assert _survivors(got) == _survivors(R.merge_dedup(*a, *b))
-    equal(got, _co_rank_mirror(a, b))
+    equal(got, _merge_path_mirror(a, b))
 
 
 @pytest.mark.parametrize("case", ["a_empty", "b_empty", "both_empty",
@@ -305,13 +344,62 @@ def test_merge_dedup_edges_follow_the_oracle(case):
         a[1][:] = 0
         b = (a[0].copy(), np.full(len(a[0]), 0xFFFFFFFF, np.uint32), a[2] + 5)
     got = _merge_port(a, b)
-    equal(got, _co_rank_mirror(a, b))
+    equal(got, _merge_path_mirror(a, b))
     if len(a[0]) + len(b[0]):
         equal(got, _merge_oracle(a, b))
     else:
         assert all(len(g) == 0 for g in got)
     if case in ("shared_keys", "extreme_seqs"):     # one newest copy
         assert _survivors(got) == _survivors(R.merge_dedup(*a, *b))
+
+
+def _merge_tile_case(case, rng):
+    """Runs for the merge path's tile edges (in the mirror's tiles of 8):
+    one run empty, runs of unequal and odd lengths, a key's two copies on
+    either side of a tile boundary (its newer copy in A or in B), every
+    key in both runs, key 0xFFFFFFFF, equal seqs."""
+    if case == "a_empty":
+        return _runs(rng, 0, 37)
+    if case == "b_empty":
+        return _runs(rng, 29, 0)
+    if case == "unequal_odd":
+        return _runs(rng, 101, 7, space=400)
+    if case.startswith("split_pair"):   # pair k at rows 2k - 1 and 2k
+        ak = np.arange(0, 60, dtype=np.uint32)
+        bk = ak[1:].copy()
+        aseq = np.full(len(ak), 10 if case == "split_pair_a" else 5,
+                       np.uint32)
+        bseq = np.full(len(bk), 7, np.uint32)
+        return (ak, aseq, ak + 1), (bk, bseq, bk + 2)
+    a, b = _runs(rng, 64, 64, space=200)
+    if case == "all_shared":
+        return a, (a[0].copy(), a[1] + 1, a[2] + 3)
+    if case == "top_key":
+        a[0][-1] = b[0][-1] = 0xFFFFFFFF
+        return a, b
+    # equal seqs: every key in both runs with the same seq (A first)
+    return a, (a[0].copy(), a[1].copy(), a[2] + 3)
+
+
+@pytest.mark.parametrize("tile", [1, 3, 8, MERGE_TILE])
+@pytest.mark.parametrize("case", ["a_empty", "b_empty", "unequal_odd",
+                                  "split_pair_a", "split_pair_b",
+                                  "all_shared", "top_key", "equal_seqs"])
+def test_merge_dedup_merge_path_tiles(case, tile):
+    """The kernel's tiled merge path, mirrored at small tiles so that
+    every edge lies on a tile boundary, equals the port's rows, ``ref.py``
+    row for row, and the Pallas wrapper in interpret mode on the surviving
+    rows (its network orders two copies of a key otherwise).  Key
+    0xFFFFFFFF is the Pallas pad, and two copies of a key with equal seqs
+    survive as whichever its network puts first: there ``ref.py`` alone
+    holds the port (A's copy survives)."""
+    a, b = _merge_tile_case(case, np.random.default_rng(len(case)))
+    got = _merge_port(a, b)
+    equal(got, _merge_path_mirror(a, b, tile))
+    equal(got, _merge_oracle(a, b))
+    if case not in ("top_key", "equal_seqs"):
+        assert _survivors(got) == _survivors(
+            R.merge_dedup(*a, *b, interpret=True))
 
 
 @settings(max_examples=15, deadline=None)
@@ -324,7 +412,7 @@ def test_merge_dedup_property_newest_wins(akeys, bkeys):
     b = (bk, np.full(len(bk), 20, np.uint32), bk + 2)     # b is newer
     got = _merge_port(a, b)
     equal(got, _merge_oracle(a, b))
-    equal(got, _co_rank_mirror(a, b))
+    equal(got, _merge_path_mirror(a, b))
     kept = dict(zip(got[0][got[3]].tolist(), got[2][got[3]].tolist()))
     expect = {int(k): int(k) + 1 for k in ak}
     expect.update({int(k): int(k) + 2 for k in bk})
