@@ -41,8 +41,11 @@ Phases, each of which raises on failure (exit code != 0):
              tests' shapes, the edges (empty, one, ragged tiles, all and no
              hot records, runs sharing every key, keys at 0xFFFFFFFD and the
              reference's pad values, merges ending either side of a merge
-             tile and a key's two copies split by one) and the ``deploy``
-             shapes of
+             tile and a key's two copies split by one, partitions either
+             side of a partition tile and with only the last tile hot,
+             GC-Lookup runs of 2^k - 1, 2^k and 2^k + 1 keys and with
+             duplicate keys, operands 4 bytes off a 16-byte boundary) and
+             the ``deploy`` shapes of
              ``repro_torch.bench.kernels`` (the 1 GiB store's state): integer
              outputs equal exactly, pages bit for bit.  Then the kernel
              benchmark itself, ``repro_torch.bench.kernels.run("cuda",
@@ -111,8 +114,12 @@ estimate, the routed sketch add at 4,096 and 1,024 keys, a routed
 10,096 queries over runs of 1 to 20,000 keys (staged and not), a
 multi_get's vSST finds at 128 to 4,096 keys (the host loop, and the routed
 call and the segmented kernel's tile and stride choices where the tree
-has them) and ``merge_dedup`` at the benchmark's two shapes, each as that
-tree makes it.
+has them), ``merge_dedup`` at the benchmark's two shapes, and
+``hot_cold_partition`` and ``gc_lookup`` at the benchmark's two shapes
+(the partition's device time split by launch, ``gc_lookup`` beside
+``torch.searchsorted``), each as that tree makes it; ``--only
+hot_cold_partition,gc_lookup`` (the keys of its record) times only those
+parts.
 Run either on two trees in one call to compare them.
 
 Each phase's end is logged on the script's clock (``[time]`` lines).
@@ -217,9 +224,13 @@ CUDA_KERNELS = ("probe_kernel", "rank_search_kernel", "count_le_kernel",
                 "sketch_scratch_kernel", "sketch_scale_kernel",
                 # segment_sum zeroes its counts with a memset on the stream
                 "Memset",
-                "gc_lookup_kernel", "bloom_probe_kernel", "merge_path_kernel",
-                "partition_count_kernel", "partition_scan_kernel",
-                "partition_scatter_kernel", "page_gather_kernel")
+                "gc_lookup_kernel", "bloom_probe_kernel",
+                "merge_path_kernel", "partition_count_kernel",
+                "partition_place_kernel",
+                # the partition's scan and scatter on trees before its two
+                # launches, for --kernel-times --src on such a tree
+                "partition_scan_kernel", "partition_scatter_kernel",
+                "page_gather_kernel")
 
 
 SPIN_TAIL_CYCLES = 2_000_000    # ~1 ms at the H100's 1.98 GHz boost clock
@@ -818,23 +829,42 @@ def _bench_kernel_checks(rng, device, errs) -> None:
     import numpy as np
     import torch
     from repro_torch import kernels
-    from repro_torch.kernels.common import merge_threads, u32_tensor
+    from repro_torch.kernels.common import (merge_threads, partition_tile,
+                                            u32_tensor)
     from repro_torch.kernels.merge.ops import ITEMS as MERGE_ITEMS
 
     def u32(*cols):
         return tuple(u32_tensor(np.asarray(c), device) for c in cols)
 
+    def u32_at(a, shift):
+        """A column whose data starts ``shift`` elements past an
+        allocation's start (shift 1: 4 bytes off a 16-byte boundary)."""
+        t = u32_tensor(np.concatenate([np.zeros(shift, np.uint32),
+                                       np.asarray(a, np.uint32)]), device)
+        return t[shift:]
+
     top = 0xFFFFFFFD                   # largest key the reference accepts
-    # gc_lookup: the reference's (q, n) cases, then the edges
+    # gc_lookup: the reference's (q, n) cases, then the edges: runs around
+    # the search's round and finish sizes (2^k - 1, 2^k, 2^k + 1), runs
+    # with duplicate keys ("dup-n": cut back to exactly n keys), keys and
+    # queries at the top of u32, and a key column 4 bytes off a 16-byte
+    # boundary (the scalar loads)
+    around = tuple((512, m, "") for k in (3, 4, 5, 6, 7, 10, 16)
+                   for m in ((1 << k) - 1, 1 << k, (1 << k) + 1))
     for q, n, kind in ((1, 10, ""), (17, 100, ""), (300, 1000, ""),
                        (256, 512, ""), (5, 2000, ""), (5, 0, ""),
                        (0, 50, ""), (1, 1, ""), (700, 3000, "dup"),
-                       (600, 3000, "top"), (4097, 70000, "")):
+                       (600, 3000, "top"), (4097, 70000, ""),
+                       (64, 2, ""), (64, 7, "dup-n"), (512, 65536, "dup-n"),
+                       (512, 4096, "top"), (512, 1023, "shift"),
+                       (512, 65537, "shift"), (64, 9, "shift")) + around:
         keys = np.sort(rng.choice(np.arange(1, 10 * max(n, 1) + 2,
                                             dtype=np.uint32), n,
                                   replace=False))
-        if kind == "dup":
+        if kind.startswith("dup"):
             keys = np.sort(np.concatenate([keys, keys[::5]]))
+        if kind == "dup-n":
+            keys = keys[:n]
         if kind == "top":
             keys[-3:] = [top - 2, top - 1, top]
         qs = np.concatenate([rng.choice(keys, q // 2) if n else keys[:0],
@@ -843,7 +873,10 @@ def _bench_kernel_checks(rng, device, errs) -> None:
         if kind == "top" and q > 4:
             qs[:4] = [top, top - 1, 0xFFFFFFFE, 0xFFFFFFFF]
         vids = (keys * 3 + 1).astype(np.uint32)
-        found, vid, _ = _hold("gc_lookup", u32(qs, keys, vids, keys), errs)
+        args = u32(qs, keys, vids, keys) if kind != "shift" else (
+            u32_at(qs, 1), u32_at(keys, 1), u32_at(vids, 3),
+            u32_at(keys, 2))
+        found, vid, _ = _hold("gc_lookup", args, errs)
         pos = np.searchsorted(keys, qs)
         hit = np.zeros(len(qs), bool) if not n else \
             keys[np.minimum(pos, len(keys) - 1)] == qs
@@ -904,19 +937,34 @@ def _bench_kernel_checks(rng, device, errs) -> None:
                 and int(keep.sum()) == len(np.union1d(ak, bk)),
                 f"merge_dedup disagrees with numpy at {na}+{nb} {kind}")
     # partition: the reference's sizes, then empty, all hot, none hot and
-    # a ragged last tile
+    # a ragged last tile; then the tiles: either side of one, three and a
+    # ragged fourth (all hot, none hot, only the last tile hot), and
+    # operands 4 bytes off a 16-byte boundary (the scalar loads)
+    tile = partition_tile()
     for n, share in ((1, .3), (7, .3), (64, .3), (500, .3), (0, .3),
-                     (5000, 1.), (5000, 0.), (1025, .3), (70001, .3)):
-        hot = rng.random(n) < share
+                     (5000, 1.), (5000, 0.), (1025, .3), (70001, .3),
+                     (tile - 1, .3), (tile, .3), (tile + 1, .3),
+                     (3 * tile + 5, .3), (3 * tile + 5, 1.),
+                     (3 * tile + 5, 0.), (3 * tile + 5, "last"),
+                     (2 * tile, "last"), (3 * tile + 5, "shift"),
+                     (tile - 3, "shift")):
+        hot = rng.random(n) < (.3 if isinstance(share, str) else share)
+        if share == "last":
+            hot[:(n - 1) // tile * tile] = False
         keys = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
-        out = _hold("hot_cold_partition",
-                    (*u32(keys), torch.from_numpy(hot).to(device),
-                     *u32(np.arange(n), np.full(n, 100))), errs)
+        if share == "shift":
+            h = torch.from_numpy(np.concatenate([[True], hot])).to(device)
+            args = (u32_at(keys, 1), h[1:], u32_at(np.arange(n), 3),
+                    u32_at(np.full(n, 100), 2))
+        else:
+            args = (*u32(keys), torch.from_numpy(hot).to(device),
+                    *u32(np.arange(n), np.full(n, 100)))
+        out = _hold("hot_cold_partition", args, errs)
         order = np.argsort(~hot, kind="stable")
         require(int(out[3][0]) == int(hot.sum())
                 and (out[0].cpu().numpy().view(np.uint32)
                      == keys[order]).all(),
-                f"hot_cold_partition disagrees with numpy at n={n}")
+                f"hot_cold_partition disagrees with numpy at n={n} {share}")
     # page_gather: the reference's cases, then a page of 30 bytes
     for b, p, npages, psize, d, dtype in (
             (1, 1, 4, 8, 128, torch.float32), (4, 8, 64, 16, 128,
@@ -2100,7 +2148,7 @@ def crossover_only(src: Path) -> None:
 COALESCE_TIMES_M = (64, 256, 1024, 4096, 8192)
 
 
-def kernel_times_only(src: Path) -> None:
+def kernel_times_only(src: Path, only=None) -> None:
     """Build the port under ``src`` and time ``segment_sum`` and
     ``gather_min64`` at the adaptive run's largest inputs (1,018 ids into
     32,576 slots; a 2 x 4,096 sketch and 5,433 queries) and
@@ -2116,8 +2164,11 @@ def kernel_times_only(src: Path) -> None:
     (``_estimate_times``) and add (``_sketch_add_times``), the tracker's
     write observation (``_observe_times``), the level file assignment
     (``_interval_times``), ``rank_probe``'s run form (``_rank_times``), a
-    multi_get's vSST finds (``_vsst_find_times``) and ``merge_dedup``
-    (``_merge_times``), as the store makes them on that tree."""
+    multi_get's vSST finds (``_vsst_find_times``), ``merge_dedup``
+    (``_merge_times``), ``hot_cold_partition`` (``_partition_times``) and
+    ``gc_lookup`` (``_gc_lookup_times``), as the store makes them on that
+    tree.  ``only``: the names of the parts to run (the keys of the
+    result), the build always; None for all."""
     import numpy as np
     import torch
     sys.path.insert(0, str(src.resolve()))
@@ -2129,6 +2180,9 @@ def kernel_times_only(src: Path) -> None:
     common.library()
     out = {"build_s": time.perf_counter() - t0}
     rng = np.random.default_rng(14)
+
+    def want(part):
+        return only is None or part in only
     slots = 32576
     ids = torch.from_numpy(rng.integers(0, slots, 1018)).to("cuda")
     vals = rng.random((2, 4096)) * 1e6
@@ -2137,10 +2191,12 @@ def kernel_times_only(src: Path) -> None:
     for name, fn in (("segment_sum", lambda: kernels.segment_sum(ids, slots)),
                      ("gather_min64",
                       lambda: kernels.gather_min64(bits, idx))):
+        if not want(name):
+            continue
         out[name] = [device_ms(fn, iters=200, only=CUDA_KERNELS, label=name)
                      for _ in range(3)]
         out[name + "_queued"] = queued_ms(fn, 200)
-    for m in COALESCE_TIMES_M:
+    for m in COALESCE_TIMES_M if want("run_coalesce") else ():
         r = torch.from_numpy(rng.integers(0, max(2, m // 10), m)).to("cuda")
         p = torch.from_numpy(rng.integers(0, 1 << 12, m)).to("cuda")
         err = max_abs_err(kernels.run_coalesce(r, p),
@@ -2159,14 +2215,18 @@ def kernel_times_only(src: Path) -> None:
             "sort_ms": [device_ms(lambda: torch.sort(packed), iters=200,
                                   label=f"torch.sort {m}")
                         for _ in range(3)]}
-    out["level_probe"] = _level_times(kernels)
-    out["estimate"] = _estimate_times(kernels)
-    out["sketch_add"] = _sketch_add_times(kernels)
-    out["observe_writes"] = _observe_times()
-    out["interval_rank"] = _interval_times(kernels)
-    out["rank_probe"] = _rank_times(kernels)
-    out["vsst_find"] = _vsst_find_times(kernels)
-    out["merge_dedup"] = _merge_times()
+    for part, fn in (("level_probe", lambda: _level_times(kernels)),
+                     ("estimate", lambda: _estimate_times(kernels)),
+                     ("sketch_add", lambda: _sketch_add_times(kernels)),
+                     ("observe_writes", _observe_times),
+                     ("interval_rank", lambda: _interval_times(kernels)),
+                     ("rank_probe", lambda: _rank_times(kernels)),
+                     ("vsst_find", lambda: _vsst_find_times(kernels)),
+                     ("merge_dedup", _merge_times),
+                     ("hot_cold_partition", _partition_times),
+                     ("gc_lookup", _gc_lookup_times)):
+        if want(part):
+            out[part] = fn()
     print(json.dumps({"kernel_times": out}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -2677,6 +2737,95 @@ def _merge_items_sweep(merge_dedup, device="cuda") -> dict:
     return out
 
 
+def _split_us(fn, iters: int = 100) -> dict:
+    """{kernel: device us a launch} of what ``fn`` issues, over every
+    launch that ``PROFILE_SESSIONS`` profiler sessions of ``iters`` calls
+    recorded; a kernel is named by the longest ``CUDA_KERNELS`` name in
+    the profiler's."""
+    def loop():
+        for _ in range(iters):
+            fn()
+    total = {}
+    for _ in range(PROFILE_SESSIONS):
+        for key, (n, us) in kernel_records(loop, CUDA_KERNELS).items():
+            name = max((k for k in CUDA_KERNELS if k in key), key=len)
+            tn, tus = total.get(name, (0, 0.0))
+            total[name] = (tn + n, tus + us)
+    return {k: us / n for k, (n, us) in total.items()}
+
+
+def _bench_args(kernel: str, device="cuda") -> list:
+    """[(shapes, shape, operands on device, the plain version's outputs)]
+    of ``kernel``'s cases at the kernel benchmark's two shapes."""
+    from repro_torch.bench import kernels as bench
+    out = []
+    for case in bench.bench_cases() + bench.deploy_cases():
+        if case.kernel == kernel:
+            args = bench.operands(case, device)
+            out.append((case.shapes, case.shape, args,
+                        bench.plain(case)(*args)))
+    return out
+
+
+def _partition_times(device="cuda") -> dict:
+    """``hot_cold_partition`` at the kernel benchmark's ``bench`` (4,096
+    records) and ``deploy`` (2^20, 315,002 hot) shapes: held against its
+    plain version, then its device time (two sets of three profiler
+    sessions of 100 launches), split by kernel (``_split_us``: each
+    kernel's device us a launch), and the wrapper call's."""
+    from repro_torch.kernels import hot_cold_partition
+    res = {}
+    for shapes, shape, args, want in _bench_args("hot_cold_partition",
+                                                 device):
+        require(max_abs_err(hot_cold_partition(*args), want) == 0,
+                f"hot_cold_partition disagrees with its plain version at "
+                f"the {shapes} shape")
+
+        def fn():
+            return hot_cold_partition(*args)
+        rec = {"shape": shape,
+               "ms": [device_ms(fn, iters=100, only=CUDA_KERNELS,
+                                label=f"hot_cold_partition {shapes}")
+                      for _ in range(2)],
+               "by_kernel_us": _split_us(fn),
+               "call_ms": call_ms(fn, iters=100)}
+        log(f"[kernel-times] hot_cold_partition {shapes}: "
+            f"{json.dumps(rec)}")
+        res[shapes] = rec
+    return res
+
+
+def _gc_lookup_times(device="cuda") -> dict:
+    """``gc_lookup`` at the kernel benchmark's ``bench`` (1,024 queries
+    over 8,192 keys) and ``deploy`` (65,536 over 2^20) shapes: held
+    against its plain version, then its device time (two sets of three
+    profiler sessions of 100 launches), the wrapper call's and
+    ``torch.searchsorted``'s (ranks only)."""
+    import torch
+    from repro_torch.kernels import gc_lookup
+    m32 = -(1 << 31)                   # int32 XOR: u32 order as signed order
+    res = {}
+    for shapes, shape, args, want in _bench_args("gc_lookup", device):
+        require(max_abs_err(gc_lookup(*args), want) == 0,
+                f"gc_lookup disagrees with its plain version at the "
+                f"{shapes} shape")
+
+        def fn():
+            return gc_lookup(*args)
+        qo, ko = args[0] ^ m32, args[1] ^ m32
+        rec = {"shape": shape,
+               "ms": [device_ms(fn, iters=100, only=CUDA_KERNELS,
+                                label=f"gc_lookup {shapes}")
+                      for _ in range(2)],
+               "call_ms": call_ms(fn, iters=100),
+               "library_ms": device_ms(lambda: torch.searchsorted(ko, qo),
+                                       iters=100,
+                                       label=f"searchsorted {shapes}")}
+        log(f"[kernel-times] gc_lookup {shapes}: {json.dumps(rec)}")
+        res[shapes] = rec
+    return res
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2695,8 +2844,12 @@ def main(argv) -> int:
                          "run_coalesce at M from 64 to 8,192, a level's "
                          "table probes, the sketch estimate and add, the "
                          "tracker's observe_writes, interval_rank, "
-                         "rank_probe's two forms, a multi_get's vSST finds "
-                         "and merge_dedup")
+                         "rank_probe's two forms, a multi_get's vSST finds, "
+                         "merge_dedup, hot_cold_partition and gc_lookup")
+    ap.add_argument("--only", default=None,
+                    help="with --kernel-times: the parts to time, comma-"
+                         "separated (the keys of its record, e.g. "
+                         "hot_cold_partition,gc_lookup); default all")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="directory holding the repro_torch package")
     args = ap.parse_args(argv)
@@ -2712,7 +2865,7 @@ def main(argv) -> int:
         crossover_only(args.src)
         return 0
     if args.kernel_times:
-        kernel_times_only(args.src)
+        kernel_times_only(args.src, args.only and args.only.split(","))
         return 0
     sys.path.insert(0, str(args.src.resolve()))
     t_start = time.perf_counter()

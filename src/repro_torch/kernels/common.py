@@ -176,11 +176,12 @@ _SIGNATURES = {
                    _P),
     "gather_min64": (_P, _I64, _I64, _P, _I64, _P, _P),
     "sketch_estimate": (_P, _I64, _I64, _I64, _I64, _P, _P, _I64, _P, _P),
-    "gc_lookup": (_P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P),
+    "gc_lookup": (_P, _I64, _P, _P, _P, _I64, _P, _P, _P, _I64, _P),
     "bloom_probe": (_P, _I64, _P, _I64, _I64, _P, _P),
     "merge_dedup": (_P, _P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _I64,
                     _P),
-    "hot_cold_partition": (_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P),
+    "hot_cold_partition": (_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _I64,
+                           _P),
     "page_gather": (_P, _I64, _P, _I64, _I64, _P, _P),
 }
 
@@ -222,8 +223,8 @@ def count_le_smem_files() -> int:
 
 @functools.lru_cache(maxsize=None)
 def partition_tile() -> int:
-    """Records per tile of the partition passes (the library's constant);
-    ``hot_cold_partition`` needs one int64 of scratch per tile."""
+    """Records per tile of the partition (the library's constant);
+    ``hot_cold_partition`` needs one uint32 of scratch per tile."""
     return int(library().scav_partition_tile())
 
 

@@ -51,11 +51,9 @@ constexpr int kCountBytes =
     (1 << kDigitBits) * kCountStride * (int)sizeof(u32);
 constexpr int kCoalesceSmem = (int)(kSmemSortCap * sizeof(u64)) + kCountBytes;
 
-// #{run < q} over an ascending run (searchsorted side='left'); T is u64
-// for the store's keys, u32 for the benchmark kernels' keys.
-template <typename T>
-__device__ __forceinline__ i64 lower_bound(const T* __restrict__ run, i64 n,
-                                           T q) {
+// #{run < q} over an ascending run (searchsorted side='left').
+__device__ __forceinline__ i64 lower_bound(const u64* __restrict__ run,
+                                           i64 n, u64 q) {
   i64 lo = 0, hi = n;
   while (lo < hi) {
     i64 mid = (lo + hi) >> 1;
@@ -913,7 +911,6 @@ inline unsigned blocks_for(i64 n, int threads) {
 // and arrive as the int32 bit view of those values.  No kernel pads:
 // ragged edges are masked, so no sentinel value is reserved.
 
-constexpr int kPartTile = 1024;   // records per CTA of the partition passes
 constexpr int kCopyThreads = 256;
 
 // ---------------------------------------------------------------------------
@@ -922,25 +919,94 @@ constexpr int kCopyThreads = 256;
 // the run equal to the query (searchsorted side='left') gives vid and
 // vfile; a miss gives found false and zeros.
 //
-// Bound: latency.  Each query is ~log2(N) dependent loads into the sorted
-// run, and only a hit reads its vid and vfile.  The TPU kernel compared every query with every key (no
-// per-lane gather there); here one thread per query runs a binary search,
-// so all queries' load chains overlap and the run's top levels stay in L2.
-__global__ void gc_lookup_kernel(const u32* __restrict__ q, i64 nq,
-                                 const u32* __restrict__ keys,
-                                 const u32* __restrict__ vids,
-                                 const u32* __restrict__ vfiles, i64 n,
-                                 bool* __restrict__ found,
-                                 u32* __restrict__ vid,
-                                 u32* __restrict__ vfile) {
-  i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+// Bound: the L1's throughput.  The TPU kernel compared every query with
+// every key (no per-lane gather there).  The first port ran a lower_bound
+// a thread: ~21 dependent loads a query at N 2^20.  65,536 queries are all
+// resident at once, and each level's load is a warp instruction over ~32
+// distinct lines; the time followed the load instructions issued, not the
+// chain's length: rounds of 2 or 3 levels (3 or 7 loads issued together),
+// a warp finishing its queries' last 5 levels from one coalesced load each,
+// or L1::no_allocate loads below the shared levels were all slower (7.2 us
+// for the first port, 8.8 to 12.3 for rounds; NVIDIA H100 80GB HBM3, 700 W,
+// PERF.md §6).  Design: fewer load instructions a query.  Each CTA stages
+// 2^kGcLogFences fences of the run in shared memory, and its queries
+// resolve the top levels there; the levels under them read the run, and
+// the last kGcLogWindow levels come from one sector: 6.30-6.34 us for
+// 65,536 queries at N 2^20 (7.24-7.28 before), 2.79-2.80 for 1,024 at N
+// 8,192 (3.55-3.56).  1,024 fences won at N 8,192 (2.64) and 512 fences
+// with 512 threads a CTA at N 2^20 (6.25); 512 with 256 is within 7% and
+// 2% of them in one configuration.
+//
+// The search: with 2^lg the largest power of two <= N, rank = #{run < q}
+// lies in [0, 2^(lg+1)); the level of step 2^l tests run[r + 2^l - 1] < q
+// (a position past the run reads 0xFFFFFFFF, which tests false as the end
+// of the run does, so no key is reserved) and adds 2^l to r, after which
+// rank lies in [r, r + 2^l).  The levels of steps >= 2^fs read fence m =
+// run[((m + 1) << fs) - 1] at m = (r >> fs) + 2^(l - fs) - 1, fs chosen so
+// that at most 2^kGcLogFences fences cover the run; then the 8 keys at
+// [r, r + 8) (r a multiple of 8: one 32-byte sector, two 16-byte loads
+// where the run is 16-byte aligned) give rank = r + #{those < q}, and the
+// query is found where one of them equals it.
+constexpr int kGcLogFences = 9;   // 512 fences, 2 KB of shared memory
+constexpr int kGcLogWindow = 3;   // the finish's 8 keys
+constexpr int kGcWindow = 1 << kGcLogWindow;
+
+template <bool kVec>
+__global__ void __launch_bounds__(kProbeThreads)
+gc_lookup_kernel(const u32* __restrict__ q, i64 nq,
+                 const u32* __restrict__ keys, const u32* __restrict__ vids,
+                 const u32* __restrict__ vfiles, i64 n,
+                 bool* __restrict__ found, u32* __restrict__ vid,
+                 u32* __restrict__ vfile) {
+  __shared__ u32 fence[1 << kGcLogFences];
+  const i64 i = (i64)blockIdx.x * kProbeThreads + threadIdx.x;
+  const u32 key = i < nq ? q[i] : 0u;     // issued before the staging
+  int lg = n > 0 ? 63 - __clzll((long long)n) : -1;
+  const int fs = lg + 1 - kGcLogFences > kGcLogWindow
+                     ? lg + 1 - kGcLogFences : kGcLogWindow;
+  const int nf = lg >= fs ? 2 << (lg - fs) : 0;
+  for (int m = threadIdx.x; m < nf; m += kProbeThreads) {
+    const i64 p = ((i64)(m + 1) << fs) - 1;
+    fence[m] = p < n ? keys[p] : 0xFFFFFFFFu;
+  }
+  __syncthreads();
   if (i >= nq) return;
-  u32 key = q[i];
-  i64 r = lower_bound(keys, n, key);
-  bool hit = r < n && keys[r] == key;
+  u32 mi = 0;                                   // r >> fs
+  for (; lg >= fs; --lg) {
+    const u32 st = 1u << (lg - fs);
+    if (fence[mi + st - 1] < key) mi += st;
+  }
+  i64 r = (i64)mi << fs;
+  for (; lg >= kGcLogWindow; --lg) {
+    const i64 p = r + ((i64)1 << lg) - 1;
+    if ((p < n ? keys[p] : 0xFFFFFFFFu) < key) r += (i64)1 << lg;
+  }
+  u32 w[kGcWindow];
+  if (kVec && r + kGcWindow <= n) {
+#pragma unroll
+    for (int v = 0; v < kGcWindow / 4; ++v) {
+      const uint4 x = ((const uint4*)(keys + r))[v];
+      w[4 * v] = x.x;
+      w[4 * v + 1] = x.y;
+      w[4 * v + 2] = x.z;
+      w[4 * v + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kGcWindow; ++j)
+      w[j] = r + j < n ? keys[r + j] : 0xFFFFFFFFu;
+  }
+  int c = 0;
+  bool hit = false;
+#pragma unroll
+  for (int j = 0; j < kGcWindow; ++j) {
+    c += w[j] < key;
+    hit |= r + j < n && w[j] == key;
+  }
+  const i64 rank = r + c;
   found[i] = hit;
-  vid[i] = hit ? vids[r] : 0u;
-  vfile[i] = hit ? vfiles[r] : 0u;
+  vid[i] = hit ? vids[rank] : 0u;
+  vfile[i] = hit ? vfiles[rank] : 0u;
 }
 
 // ---------------------------------------------------------------------------
@@ -1152,63 +1218,215 @@ merge_path_kernel(const u32* __restrict__ ak, const u32* __restrict__ as,
 // kernels/partition/kernel.py:37), with the contract of partition/ref.py:
 // a stable partition, hot records first, plus the hot count.
 //
-// Bound: bytes (13 B read and 12 B written per record).  The TPU kernel
-// bitonic-sorted (cold << log2 n | position) over a power-of-two padding;
-// here a hot record goes to its exclusive hot prefix h(i) and a cold one to
-// n_hot + i - h(i), in three passes: per-tile hot counts, one CTA scanning
-// them into tile offsets and the total, and a scatter that rebuilds h(i)
-// inside its tile from warp ballots.
-__global__ void __launch_bounds__(kPartTile)
+// Bound: bytes (13 B read and 12 B written a record: 25 MB, 7.83 us at
+// N 2^20).  The TPU kernel bitonic-sorted (cold << log2 n | position) over
+// a power-of-two padding.  The first port ran three launches (tile counts,
+// one CTA scanning them, a scatter storing each record's three words
+// straight to their place, a warp's stores two unaligned partial runs a
+// column): 16.2-16.6 us at N 2^20 on an NVIDIA H100 80GB HBM3 at 700 W
+// (PERF.md §6 has the times since).  Design: two launches over tiles of
+// kPartTile records.
+// The first counts each tile's hot records, reading the mask 16 flags a
+// thread.  In the second each CTA sums the tile counts itself (those
+// before its tile give its hot offset, all of them n_hot), loads its
+// tile's keys, vids and vsizes 16 bytes a thread into registers, compacts
+// them stably in shared memory (hot first, each run in input order) and
+// writes the hot run and the cold run coalesced, a warp over consecutive
+// words.  The mask is read twice: 26 B a record against the bound's 25.
+// The counts' read is quadratic: 4 * ntiles^2 bytes over the grid, from
+// L2: 1 MB at N 2^20 (4% of the bytes moved), under 1% below N ~ 270,000
+// and 15% at N 2^22.  Tiles of 2,048 records (24 KB of shared memory, four
+// CTAs an SM) beat 4,096 to 16,384 (PERF.md §6).  kVec: the four operands
+// are 16-byte aligned (the wrapper decides), else every load is scalar.
+
+constexpr int kPartTile = 2048;      // records a tile (a CTA of the placement)
+constexpr int kPartThreads = 512;    // threads a CTA of the placement
+// the placement's CTAs an SM: 32 registers a thread, no spills; bounded
+// to one CTA an SM the compiler took 64 and 7-8% more time at N 2^20, and
+// to none 40, three CTAs an SM (PERF.md §6)
+constexpr int kPartCtasPerSm = 2048 / kPartThreads;
+constexpr int kPartCountThreads = kPartTile / 16;
+constexpr int kPartItems = kPartTile / (4 * kPartThreads);
+constexpr int kPartWarps = kPartThreads / 32;
+// dynamic: the same arrays declared static took 11.2-11.4 us against
+// 10.5-10.6 at N 2^20 (NVIDIA H100 80GB HBM3, 700 W, PERF.md §6); under the
+// 48 KB that needs no opt-in
+constexpr int kPartSmem = 3 * kPartTile * (int)sizeof(u32);
+static_assert(kPartSmem <= 48 * 1024, "no opt-in needed");
+static_assert(kPartItems >= 1 && kPartTile % (4 * kPartThreads) == 0,
+              "whole items a thread");
+static_assert(kPartCountThreads % 32 == 0 && kPartCountThreads <= 1024,
+              "whole warps of 16 flags a thread");
+
+// the top bit of each nonzero byte of w
+__device__ __forceinline__ u32 nonzero_bytes(u32 w) {
+  return (((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w) & 0x80808080u;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kPartCountThreads)
 partition_count_kernel(const bool* __restrict__ hot, i64 n,
-                       i64* __restrict__ tile_hot) {
-  i64 i = (i64)blockIdx.x * kPartTile + threadIdx.x;
-  int c = __syncthreads_count(i < n && hot[i]);
-  if (threadIdx.x == 0) tile_hot[blockIdx.x] = c;
-}
-
-// tile_hot: counts in, exclusive offsets out; n_hot: the total.
-__global__ void __launch_bounds__(1024)
-partition_scan_kernel(i64* __restrict__ tile_hot, i64 ntiles,
-                      i64* __restrict__ n_hot) {
-  __shared__ i64 warp_tot[32];
-  __shared__ i64 chunk_tot;
-  i64 carry = 0;
-  for (i64 c = 0; c < ntiles; c += blockDim.x) {
-    const i64 i = c + threadIdx.x;
-    const i64 v = i < ntiles ? tile_hot[i] : 0;
-    const i64 inc = block_scan<false>(v, warp_tot);
-    if (i < ntiles) tile_hot[i] = carry + inc - v;
-    if (threadIdx.x == blockDim.x - 1) chunk_tot = inc;
-    __syncthreads();
-    carry += chunk_tot;
-    __syncthreads();
+                       u32* __restrict__ tile_hot) {
+  __shared__ u32 warp_hot[kPartCountThreads / 32];
+  const unsigned char* h = (const unsigned char*)hot;
+  const i64 x = (i64)blockIdx.x * kPartTile + 16 * threadIdx.x;
+  u32 c = 0;
+  if (kVec && x + 16 <= n) {
+    const uint4 v = *(const uint4*)(h + x);
+    c = __popc(nonzero_bytes(v.x)) + __popc(nonzero_bytes(v.y)) +
+        __popc(nonzero_bytes(v.z)) + __popc(nonzero_bytes(v.w));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) c += x + j < n && h[x + j] != 0;
   }
-  if (threadIdx.x == 0) *n_hot = carry;
+  c = __reduce_add_sync(0xffffffffu, c);
+  if ((threadIdx.x & 31) == 0) warp_hot[threadIdx.x >> 5] = c;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    u32 t = 0;
+    for (int w = 0; w < kPartCountThreads / 32; ++w) t += warp_hot[w];
+    tile_hot[blockIdx.x] = t;
+  }
 }
 
-__global__ void __launch_bounds__(kPartTile)
-partition_scatter_kernel(const u32* __restrict__ keys,
-                         const bool* __restrict__ hot,
-                         const u32* __restrict__ vids,
-                         const u32* __restrict__ vsizes, i64 n,
-                         const i64* __restrict__ tile_off,
-                         const i64* __restrict__ n_hot,
-                         u32* __restrict__ okeys, u32* __restrict__ ovids,
-                         u32* __restrict__ ovsizes) {
-  __shared__ int warp_hot[kPartTile / 32];
-  const i64 i = (i64)blockIdx.x * kPartTile + threadIdx.x;
+__device__ __forceinline__ i64 warp_sum64(i64 v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Record x of the tile (x = 4 * (u * kPartThreads + threadIdx.x) + j) is
+// item u's j-th record of this thread; the tile's order is (u, warp, lane,
+// j), so the hot records before it are the earlier (item, warp) pairs',
+// then the earlier lanes' and its own earlier records'.
+template <bool kVec>
+__global__ void __launch_bounds__(kPartThreads, kPartCtasPerSm)
+partition_place_kernel(const u32* __restrict__ keys,
+                       const bool* __restrict__ hot,
+                       const u32* __restrict__ vids,
+                       const u32* __restrict__ vsizes, i64 n,
+                       const u32* __restrict__ tile_hot, i64 ntiles,
+                       i64* __restrict__ n_hot, u32* __restrict__ okeys,
+                       u32* __restrict__ ovids, u32* __restrict__ ovsizes) {
+  constexpr int kPairs = kPartItems * kPartWarps;
+  constexpr int kPer = (kPairs + 31) / 32;
+  extern __shared__ u32 part_smem[];   // the tile, compacted (kPartSmem)
+  u32* sk = part_smem;
+  u32* sv = sk + kPartTile;
+  u32* ss = sv + kPartTile;
+  __shared__ u32 pair_hot[kPairs];   // hot counts, then their offsets
+  __shared__ i64 warp_off[2][kPartWarps];
+  __shared__ i64 offs[3];            // the tile's hot offset, n_hot, hot count
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bool h = i < n && hot[i];
-  const unsigned ballot = __ballot_sync(0xffffffffu, h);
-  if (lane == 0) warp_hot[warp] = __popc(ballot);
+  const i64 t0 = (i64)blockIdx.x * kPartTile;
+  const int cnt = (int)(n - t0 < kPartTile ? n - t0 : kPartTile);
+  const unsigned char* h = (const unsigned char*)hot + t0;
+
+  // the records into registers, every load issued before any is used
+  u32 k[kPartItems][4], v[kPartItems][4], z[kPartItems][4], f[kPartItems];
+#pragma unroll
+  for (int u = 0; u < kPartItems; ++u) {
+    const int x = 4 * (u * kPartThreads + threadIdx.x);
+    if (kVec && x + 4 <= cnt) {
+      const uint4 a = *(const uint4*)(keys + t0 + x);
+      const uint4 b = *(const uint4*)(vids + t0 + x);
+      const uint4 c = *(const uint4*)(vsizes + t0 + x);
+      k[u][0] = a.x; k[u][1] = a.y; k[u][2] = a.z; k[u][3] = a.w;
+      v[u][0] = b.x; v[u][1] = b.y; v[u][2] = b.z; v[u][3] = b.w;
+      z[u][0] = c.x; z[u][1] = c.y; z[u][2] = c.z; z[u][3] = c.w;
+      f[u] = *(const u32*)(h + x);
+    } else {
+      f[u] = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool in = x + j < cnt;
+        k[u][j] = in ? keys[t0 + x + j] : 0u;
+        v[u][j] = in ? vids[t0 + x + j] : 0u;
+        z[u][j] = in ? vsizes[t0 + x + j] : 0u;
+        f[u] |= (u32)(in && h[x + j] != 0) << (8 * j);
+      }
+    }
+  }
+
+  // the hot records before this tile, and in all
+  i64 before = 0, total = 0;
+  for (i64 j = threadIdx.x; j < ntiles; j += kPartThreads) {
+    const u32 c = tile_hot[j];
+    total += c;
+    if (j < (i64)blockIdx.x) before += c;
+  }
+  before = warp_sum64(before);
+  total = warp_sum64(total);
+  if (lane == 0) {
+    warp_off[0][warp] = before;
+    warp_off[1][warp] = total;
+  }
+
+  // each record's hot rank in the tile
+  u32 hb[kPartItems], incl[kPartItems];
+#pragma unroll
+  for (int u = 0; u < kPartItems; ++u) {
+    hb[u] = nonzero_bytes(f[u]);
+    incl[u] = warp_inclusive_sum(__popc(hb[u]));
+    if (lane == 31) pair_hot[u * kPartWarps + warp] = incl[u];
+  }
   __syncthreads();
-  if (i >= n) return;
-  i64 before = tile_off[blockIdx.x] + __popc(ballot & ((1u << lane) - 1u));
-  for (int w = 0; w < warp; ++w) before += warp_hot[w];
-  const i64 dst = h ? before : *n_hot + i - before;
-  okeys[dst] = keys[i];
-  ovids[dst] = vids[i];
-  ovsizes[dst] = vsizes[i];
+  if (warp == 0) {
+    u32 c[kPer], sum = 0;
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      const int idx = lane * kPer + p;
+      c[p] = idx < kPairs ? pair_hot[idx] : 0u;
+      sum += c[p];
+    }
+    const u32 inc = warp_inclusive_sum(sum);
+    u32 run = inc - sum;
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      const int idx = lane * kPer + p;
+      if (idx < kPairs) pair_hot[idx] = run;
+      run += c[p];
+    }
+    const i64 b = warp_sum64(lane < kPartWarps ? warp_off[0][lane] : 0);
+    const i64 t = warp_sum64(lane < kPartWarps ? warp_off[1][lane] : 0);
+    if (lane == 31) {
+      offs[0] = b;
+      offs[1] = t;
+      offs[2] = inc;
+    }
+  }
+  __syncthreads();
+
+  // stable compaction into shared memory: hot at [0, th), cold after
+  const int th = (int)offs[2];
+#pragma unroll
+  for (int u = 0; u < kPartItems; ++u) {
+    const int base = (int)(pair_hot[u * kPartWarps + warp] + incl[u]) -
+                     __popc(hb[u]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int x = 4 * (u * kPartThreads + threadIdx.x) + j;
+      if (x < cnt) {
+        const int hp = base + __popc(hb[u] & ((1u << (8 * j)) - 1u));
+        const int pos = (hb[u] >> (8 * j + 7)) & 1u ? hp : th + x - hp;
+        sk[pos] = k[u][j];
+        sv[pos] = v[u][j];
+        ss[pos] = z[u][j];
+      }
+    }
+  }
+  __syncthreads();
+
+  // the hot run to [hot_off, hot_off + th), the cold run after n_hot
+  const i64 hot_off = offs[0], nh = offs[1];
+  const i64 cold0 = nh + t0 - hot_off - th;
+  for (int p = threadIdx.x; p < cnt; p += kPartThreads) {
+    const i64 dst = p < th ? hot_off + p : cold0 + p;
+    okeys[dst] = sk[p];
+    ovids[dst] = sv[p];
+    ovsizes[dst] = ss[p];
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) *n_hot = nh;
 }
 
 // ---------------------------------------------------------------------------
@@ -1244,6 +1462,25 @@ cudaError_t merge_launch(const void* ak, const void* as, const void* av,
       (const u32*)ak, (const u32*)as, (const u32*)av, na, (const u32*)bk,
       (const u32*)bs, (const u32*)bv, nb, (u32*)ok, (u32*)os, (u32*)ov,
       (bool*)keep);
+  return cudaGetLastError();
+}
+
+// The partition's two launches.
+template <bool kVec>
+cudaError_t partition_launch(const void* keys, const void* hot,
+                             const void* vids, const void* vsizes, i64 n,
+                             void* scratch, void* okeys, void* ovids,
+                             void* ovsizes, void* n_hot, cudaStream_t st) {
+  const i64 ntiles = (n + kPartTile - 1) / kPartTile;
+  partition_count_kernel<kVec><<<(unsigned)ntiles, kPartCountThreads, 0,
+                                 st>>>((const bool*)hot, n, (u32*)scratch);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  partition_place_kernel<kVec><<<(unsigned)ntiles, kPartThreads, kPartSmem,
+                                 st>>>(
+      (const u32*)keys, (const bool*)hot, (const u32*)vids,
+      (const u32*)vsizes, n, (const u32*)scratch, ntiles, (i64*)n_hot,
+      (u32*)okeys, (u32*)ovids, (u32*)ovsizes);
   return cudaGetLastError();
 }
 
@@ -1470,13 +1707,20 @@ int sketch_estimate(const void* bits, i64 d, i64 w, i64 wm, i64 wl,
   return (int)cudaGetLastError();
 }
 
+// vec16 != 0 when keys is 16-byte aligned.
 int gc_lookup(const void* q, i64 nq, const void* keys, const void* vids,
               const void* vfiles, i64 n, void* found, void* vid, void* vfile,
-              void* stream) {
-  gc_lookup_kernel<<<blocks_for(nq, kProbeThreads), kProbeThreads, 0,
-                     (cudaStream_t)stream>>>(
-      (const u32*)q, nq, (const u32*)keys, (const u32*)vids,
-      (const u32*)vfiles, n, (bool*)found, (u32*)vid, (u32*)vfile);
+              i64 vec16, void* stream) {
+  const unsigned grid = blocks_for(nq, kProbeThreads);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec16)
+    gc_lookup_kernel<true><<<grid, kProbeThreads, 0, st>>>(
+        (const u32*)q, nq, (const u32*)keys, (const u32*)vids,
+        (const u32*)vfiles, n, (bool*)found, (u32*)vid, (u32*)vfile);
+  else
+    gc_lookup_kernel<false><<<grid, kProbeThreads, 0, st>>>(
+        (const u32*)q, nq, (const u32*)keys, (const u32*)vids,
+        (const u32*)vfiles, n, (bool*)found, (u32*)vid, (u32*)vfile);
   return (int)cudaGetLastError();
 }
 
@@ -1509,30 +1753,22 @@ int merge_dedup(const void* ak, const void* as, const void* av, i64 na,
   }
 }
 
-// Records per tile of the partition passes; scratch holds one int64 per
-// tile.
+// Records per tile of the partition; scratch holds one uint32 per tile.
 i64 scav_partition_tile() { return kPartTile; }
 
-// n >= 1; scratch: ceil(n / kPartTile) int64; n_hot: one int64.
+// n >= 1; scratch: ceil(n / kPartTile) uint32; n_hot: one int64; vec16
+// != 0 when keys, hot, vids and vsizes are 16-byte aligned.
 int hot_cold_partition(const void* keys, const void* hot, const void* vids,
                        const void* vsizes, i64 n, void* scratch, void* okeys,
-                       void* ovids, void* ovsizes, void* n_hot,
+                       void* ovids, void* ovsizes, void* n_hot, i64 vec16,
                        void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const i64 ntiles = (n + kPartTile - 1) / kPartTile;
-  partition_count_kernel<<<(unsigned)ntiles, kPartTile, 0, st>>>(
-      (const bool*)hot, n, (i64*)scratch);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  partition_scan_kernel<<<1, 1024, 0, st>>>((i64*)scratch, ntiles,
-                                            (i64*)n_hot);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  partition_scatter_kernel<<<(unsigned)ntiles, kPartTile, 0, st>>>(
-      (const u32*)keys, (const bool*)hot, (const u32*)vids,
-      (const u32*)vsizes, n, (const i64*)scratch, (const i64*)n_hot,
-      (u32*)okeys, (u32*)ovids, (u32*)ovsizes);
-  return (int)cudaGetLastError();
+  return (int)(vec16 ? partition_launch<true>(keys, hot, vids, vsizes, n,
+                                              scratch, okeys, ovids, ovsizes,
+                                              n_hot, st)
+                     : partition_launch<false>(keys, hot, vids, vsizes, n,
+                                               scratch, okeys, ovids,
+                                               ovsizes, n_hot, st));
 }
 
 // slots = B * P >= 1 output pages; table entries already checked to lie in

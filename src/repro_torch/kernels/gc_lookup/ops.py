@@ -2,7 +2,9 @@
 
 CPU tensors run the plain torch version (``ref.py``); CUDA tensors launch
 the CUDA kernel, which adds one to ``gc_lookup.launches``, or raise.
-Outputs are allocated here; the kernel allocates nothing.
+Outputs are allocated here; the kernel allocates nothing.  The kernel
+reads a search's last keys 16 bytes a load where the key column is
+16-byte aligned, else one at a time.
 
 Columns are int32 tensors holding u32 bit patterns.  The reference wrapper
 also takes u64 columns and asserts that their keys lie below 2^32 - 2; the
@@ -35,7 +37,8 @@ def gc_lookup(queries: torch.Tensor, keys: torch.Tensor, vids: torch.Tensor,
     if q:
         launch("gc_lookup", dev, queries.data_ptr(), q, keys.data_ptr(),
                vids.data_ptr(), vfiles.data_ptr(), n, found.data_ptr(),
-               vid.data_ptr(), vfile.data_ptr())
+               vid.data_ptr(), vfile.data_ptr(),
+               int(keys.data_ptr() % 16 == 0))
         gc_lookup.launches += 1
     return found, vid, vfile
 

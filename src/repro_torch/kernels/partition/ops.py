@@ -4,7 +4,9 @@ CPU tensors run the plain torch version (``ref.py``); CUDA tensors launch
 the CUDA kernel, which adds one to ``hot_cold_partition.launches``, or
 raise.  Outputs and the per-tile scratch are allocated here; the kernel
 allocates nothing.  keys, vids and vsizes are int32 tensors holding u32
-bit patterns (``kernels/common.py``), hot a bool tensor.
+bit patterns (``kernels/common.py``), hot a bool tensor.  The kernel loads
+16 bytes a thread where all four operands are 16-byte aligned, else one
+value at a time.
 """
 
 from __future__ import annotations
@@ -33,10 +35,11 @@ def hot_cold_partition(keys, hot, vids, vsizes):
         return (*outs, torch.zeros(1, dtype=torch.int64, device=dev))
     tile = partition_tile()
     n_hot, scratch = outputs(1, dev, torch.int64) + outputs(
-        (n + tile - 1) // tile, dev, torch.int64)
+        (n + tile - 1) // tile, dev, torch.int32)
+    vec16 = all(t.data_ptr() % 16 == 0 for t in (keys, hot, vids, vsizes))
     launch("hot_cold_partition", dev, keys.data_ptr(), hot.data_ptr(),
            vids.data_ptr(), vsizes.data_ptr(), n, scratch.data_ptr(),
-           *(o.data_ptr() for o in outs), n_hot.data_ptr())
+           *(o.data_ptr() for o in outs), n_hot.data_ptr(), int(vec16))
     hot_cold_partition.launches += 1
     return (*outs, n_hot)
 

@@ -412,12 +412,23 @@ def _offpath_cases(kernel, device):
         np.uint32)
     keys[-1] = 0xFFFFFFFD
     if kernel == "gc_lookup":
-        for n, q in ((0, 5), (1, 1), (3000, 0), (3000, 4097)):
-            qs = np.concatenate([keys[:q // 2], [0xFFFFFFFE, 0xFFFFFFFF],
+        # runs around the search's round and window sizes, duplicate keys
+        # (the first copy answers), and a key column 4 bytes off a 16-byte
+        # boundary (the scalar loads)
+        sizes = [(0, 5), (1, 1), (3000, 0), (3000, 4097)] + [
+            (m, 600) for e in (3, 4, 5, 6, 10) for m in
+            ((1 << e) - 1, 1 << e, (1 << e) + 1)]
+        dup = np.sort(np.concatenate([keys, keys[::3]]))[:3000]
+        for n, q in sizes + [("dup", 3000), ("shift", 3000)]:
+            run = dup if n == "dup" else keys[:3000 if n == "shift" else n]
+            qs = np.concatenate([run[:q // 2], [0xFFFFFFFD, 0xFFFFFFFE,
+                                                0xFFFFFFFF, 0],
                                  rng.integers(0, 2**32, q, dtype=np.uint64)
                                  .astype(np.uint32)])[:q]
-            out.append(tuple(_u32(a, device) for a in
-                             (qs, keys[:n], keys[:n] + 1, keys[:n] % 97)))
+            cols = [_u32(a, device) for a in (qs, run, run + 1, run % 97)]
+            if n == "shift":
+                cols[1] = _u32(np.concatenate([[0], run]), device)[1:]
+            out.append(tuple(cols))
     elif kernel == "bloom_probe":
         from repro_torch.kernels import bloom_build
         words, k, nbits = bloom_build(_u32(keys, device))
@@ -430,13 +441,29 @@ def _offpath_cases(kernel, device):
             b = (keys[:nb], seq[:nb] | 1, seq[:nb])
             out.append(tuple(_u32(c, device) for c in (*a, *b)))
     elif kernel == "hot_cold_partition":
+        # tiles cut either side of a record, three and a ragged fourth (all
+        # hot, none, only the last tile's), and operands 4 bytes off a
+        # 16-byte boundary (the scalar loads)
+        from repro_torch.kernels.common import partition_tile
+        tile = partition_tile()
         for n, share in ((0, .3), (1, 1.), (1025, 0.), (1025, 1.),
-                         (5000, .3)):
-            hot = torch.from_numpy(rng.random(n) < share).to(device)
-            out.append((_u32(keys[:n] if n <= 3000 else np.resize(keys, n),
-                             device), hot,
-                        _u32(np.arange(n), device), _u32(np.full(n, 7),
-                                                         device)))
+                         (5000, .3), (tile - 1, .3), (tile, .3),
+                         (tile + 1, .3), (3 * tile + 5, 1.),
+                         (3 * tile + 5, 0.), (3 * tile + 5, "last"),
+                         (3 * tile + 5, "shift"), (tile - 3, "shift")):
+            h = rng.random(n) < (.3 if isinstance(share, str) else share)
+            if share == "last":
+                h[:(n - 1) // tile * tile] = False
+            cols = (np.resize(keys, n), np.arange(n), np.full(n, 7))
+            if share == "shift":
+                k, v, z = (_u32(np.concatenate([[0], c]), device)[1:]
+                           for c in cols)
+                hot = torch.from_numpy(np.concatenate([[True], h])).to(
+                    device)[1:]
+            else:
+                k, v, z = (_u32(c, device) for c in cols)
+                hot = torch.from_numpy(h).to(device)
+            out.append((k, hot, v, z))
     else:
         for dtype, ps, d in ((torch.bfloat16, 3, 5), (torch.int32, 4, 256),
                              (torch.bfloat16, 16, 128)):

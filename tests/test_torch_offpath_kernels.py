@@ -18,6 +18,9 @@ NumPy here.
 
 from __future__ import annotations
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -161,6 +164,89 @@ def test_gc_lookup_property(skeys, queries):
     member = np.isin(q, s_keys)
     assert_array_equal(got[0], member)
     assert_array_equal(got[1][member], (q + 7)[member])
+
+
+def _gc_search_mirror(keys, queries, log_f, log_w):
+    """The CUDA kernel's search, in NumPy, for every query at once.  With
+    2^lg the largest power of two <= N, rank = #{run < q} lies in
+    [0, 2^(lg+1)); the level of step 2^l tests run[r + 2^l - 1] < q (a
+    position past the run tests false) and adds 2^l to r.  The levels of
+    steps >= 2^fs, fs = max(lg + 1 - log_f, log_w), read the staged fences
+    (fence m = run[((m + 1) << fs) - 1], 2^(lg + 1 - fs) <= 2^log_f of
+    them) at index (r >> fs) + 2^(l - fs) - 1; the levels down to step
+    2^log_w read the run; then the 2^log_w keys at [r, r + 2^log_w) (r a
+    multiple of 2^log_w) give rank = r + #{those < q}, found where one
+    equals q.  -> (rank, found, r, the fences)."""
+    n, w = len(keys), 1 << log_w
+    q = queries.astype(np.int64)
+    k = np.concatenate([keys.astype(np.int64), [0xFFFFFFFF]])
+
+    def at(p):                      # a position past the run tests false
+        return k[np.minimum(p, n)]
+    lg = n.bit_length() - 1         # -1 for an empty run
+    fs = max(lg + 1 - log_f, log_w)
+    nf = 2 << (lg - fs) if lg >= fs else 0
+    fence = at(((np.arange(nf) + 1) << fs) - 1)
+    mi = np.zeros(len(q), np.int64)
+    for l in range(lg, fs - 1, -1):
+        st = 1 << (l - fs)
+        mi += np.where(fence[mi + st - 1] < q, st, 0)
+    r = mi << fs
+    for l in range(min(lg, fs - 1), log_w - 1, -1):
+        r += np.where(at(r + (1 << l) - 1) < q, 1 << l, 0)
+    win = r[:, None] + np.arange(w)
+    valid = win < n
+    kw = at(win)
+    rank = r + ((kw < q[:, None]) & valid).sum(1)
+    found = ((kw == q[:, None]) & valid).any(1)
+    return rank, found, r, fence
+
+
+def _gc_mirror_case(n, kind, rng):
+    """A run of n keys (duplicates in runs of up to three for "dup"; the
+    top three at 0xFFFFFFFB..0xFFFFFFFD for "top") and queries: every key,
+    its neighbours, 0, the largest u32 values and random ones."""
+    keys = np.sort(rng.choice(np.arange(1, 10 * max(n, 1) + 2,
+                                        dtype=np.uint32), n, replace=False))
+    if kind == "dup":
+        keys = np.sort(np.concatenate([keys, keys[::3], keys[::7]]))[:n]
+    if kind == "top" and n >= 3:
+        keys[-3:] = [BOUNDARY - 2, BOUNDARY - 1, BOUNDARY]
+    queries = np.concatenate([
+        keys, keys - 1, keys + 1,
+        [0, 1, BOUNDARY - 1, BOUNDARY, BOUNDARY + 1, 0xFFFFFFFF],
+        rng.integers(0, 1 << 32, 64, dtype=np.uint64)]).astype(np.uint32)
+    return keys, queries
+
+
+GC_MIRROR_SIZES = sorted({0, 1, 7, 8, 9} | {
+    m for e in range(2, 15) for m in ((1 << e) - 1, 1 << e, (1 << e) + 1)})
+
+
+@pytest.mark.parametrize("kind", ["", "dup", "top"])
+@pytest.mark.parametrize("n", GC_MIRROR_SIZES + [70001])
+def test_gc_lookup_search_mirror(n, kind):
+    """The kernel's search, mirrored with its fence count and window (read
+    from the CUDA source), equals searchsorted (side='left') on runs
+    around the fence stride and window sizes, with duplicate keys (the
+    first copy answers) and keys and queries at the top of u32; r stays a
+    multiple of the window, the rank lies in the window, and the staged
+    fences fit their shared memory."""
+    log_f = _cu_constant("kGcLogFences")
+    log_w = _cu_constant("kGcLogWindow")
+    keys, queries = _gc_mirror_case(n, kind, np.random.default_rng(n))
+    rank, found, r, fence = _gc_search_mirror(keys, queries, log_f, log_w)
+    want = np.searchsorted(keys, queries, side="left")
+    assert_array_equal(rank, want)
+    hit = want < n
+    hit[hit] = keys[want[hit]] == queries[hit]
+    assert_array_equal(found, hit)
+    assert (r % (1 << log_w) == 0).all() and ((rank - r) < 1 << log_w).all()
+    assert len(fence) <= 1 << log_f
+    vids = (keys * 3 + 1).astype(np.uint32)
+    got = _gc_port(queries, keys, vids, keys)
+    assert_array_equal(got[0], found)
+    assert_array_equal(got[1][found], vids[rank[found]])
 
 
 # ------------------------------------------------------------------- bloom
@@ -458,6 +544,87 @@ def test_partition_matches_reference(n, share):
         assert int(wcnt) == n_hot
         equal(got, (wk, wv, ws))
     equal(got, _prefix_mirror(keys, hot, vids, vsz))
+
+
+def _cu_constant(name: str) -> int:
+    """An ``int`` constant of the CUDA source (the kernels' own sizes)."""
+    src = (Path(T.__file__).parent / "csrc" / "kernels.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _two_launch_mirror(keys, hot, vids, vsz, tile, threads):
+    """The CUDA kernel's two launches, in NumPy.  Launch 1: each tile's hot
+    count, 16 flags a thread.  Launch 2, a tile a CTA: the tile's hot
+    offset (the counts of the tiles before it) and n_hot (all counts);
+    record x = 4 * (u * threads + t) + j of the tile is thread t's j-th of
+    item u, so its hot rank in the tile is the exclusive sum over the
+    (item, warp) pairs before its own, then the earlier lanes' counts,
+    then its own earlier records'; a hot record goes to that rank, a cold
+    one to tile_hot + x - rank, in shared memory; the hot run is written
+    from the tile's offset, the cold run from n_hot + the tile's start -
+    its offset."""
+    n, warps, items = len(hot), threads // 32, tile // (4 * threads)
+    ntiles = -(-n // tile)
+    flags = np.zeros(ntiles * tile, bool)
+    flags[:n] = hot
+    counts = flags.reshape(ntiles, tile // 16, 16).sum(-1).sum(-1)
+    n_hot = int(counts.sum())
+    out = [np.zeros(n, np.uint32) for _ in range(3)]
+    for b in range(ntiles):
+        t0 = b * tile
+        cnt = min(tile, n - t0)
+        f = flags[t0:t0 + tile].reshape(items, warps, 32, 4)
+        c = f.sum(-1)                              # a thread an item
+        incl = np.cumsum(c, axis=-1)               # over the lanes
+        pair = incl[..., -1].reshape(-1)           # (item, warp) order
+        pair_off = (np.cumsum(pair) - pair).reshape(items, warps, 1, 1)
+        rank = pair_off + (incl - c)[..., None] + np.cumsum(f, -1) - f
+        rank = rank.reshape(-1)[:cnt]
+        th = int(pair.sum())
+        x = np.arange(cnt)
+        h = f.reshape(-1)[:cnt]
+        pos = np.where(h, rank, th + x - rank)
+        before = int(counts[:b].sum())
+        p = np.arange(cnt)
+        dst = np.where(p < th, before + p, n_hot + t0 - before - th + p)
+        for o, col in zip(out, (keys, vids, vsz)):
+            smem = np.zeros(cnt, np.uint32)
+            smem[pos] = col[t0:t0 + cnt]
+            o[dst] = smem
+    return out, n_hot
+
+
+@pytest.mark.parametrize("tile,threads", [("kernel", "kernel"), (128, 32),
+                                          (1024, 64)])
+@pytest.mark.parametrize("n,share", [("tile-1", .3), ("tile", .3),
+                                     ("tile+1", .3), ("3tile+5", .3),
+                                     ("3tile+5", 1.), ("3tile+5", 0.),
+                                     ("3tile+5", "last"), (1, .3), (0, .3)])
+def test_partition_two_launch_placement(n, share, tile, threads):
+    """The kernel's placement, mirrored at its own tile and at small ones,
+    equals the port's partition and the reference's, with tiles cut
+    either side of a record, all records hot, none, and only the last
+    tile's."""
+    if tile == "kernel":
+        tile = _cu_constant("kPartTile")
+        threads = _cu_constant("kPartThreads")
+    if isinstance(n, str):
+        n = {"tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+             "3tile+5": 3 * tile + 5}[n]
+    rng = np.random.default_rng(n + tile)
+    keys = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    hot = rng.random(n) < (.3 if share == "last" else share)
+    if share == "last":
+        hot[:(n - 1) // tile * tile] = False
+    vids = np.arange(n, dtype=np.uint32)
+    vsz = rng.integers(1, 1 << 16, n).astype(np.uint32)
+    got, n_hot = _partition_port(keys, hot, vids, vsz)
+    mirror, m_hot = _two_launch_mirror(keys, hot, vids, vsz, tile, threads)
+    assert n_hot == m_hot == hot.sum()
+    equal(got, mirror)
+    gk, gv, gs, gcnt = R.hot_cold_partition(keys, hot, vids, vsz)
+    assert int(gcnt) == n_hot
+    equal(got, (gk, gv, gs))
 
 
 # ------------------------------------------------------------ paged gather
