@@ -14,7 +14,10 @@ Phases, each of which raises on failure (exit code != 0):
              keys, queries at the run's min and max, keys >= 2^32 and
              >= 2^63, coalesce columns past the shared-memory sort cap,
              coalesce keys of 0 to 64 bits and all pairs equal;
-             empty, all-masked and out-of-range ids, one slot; D from 1 to
+             empty, all-masked and out-of-range ids, one slot, slot
+             counts either side of a CTA's range, an id column 8 bytes off
+             a 16-byte boundary, the lifetime histogram's ids, every id on
+             one slot, id columns that widen the range; D from 1 to
              4, W not a power of two, counters of 0.0 and -0.0 and patterns
              that differ only in the low 32 bits); ``lookup_probe``'s level
              form with empty and one-key runs, zero-query segments,
@@ -44,8 +47,10 @@ Phases, each of which raises on failure (exit code != 0):
              tile and a key's two copies split by one, partitions either
              side of a partition tile and with only the last tile hot,
              GC-Lookup runs of 2^k - 1, 2^k and 2^k + 1 keys and with
-             duplicate keys, operands 4 bytes off a 16-byte boundary) and
-             the ``deploy`` shapes of
+             duplicate keys, operands 4 bytes off a 16-byte boundary;
+             bloom k 0 to 17, Q 0 to 4,097, nbits below 32 words a word
+             and no multiple of 32, and a 512 MiB filter of 2^32 - 1
+             bits) and the ``deploy`` shapes of
              ``repro_torch.bench.kernels`` (the 1 GiB store's state): integer
              outputs equal exactly, pages bit for bit.  Then the kernel
              benchmark itself, ``repro_torch.bench.kernels.run("cuda",
@@ -103,7 +108,8 @@ Phases, each of which raises on failure (exit code != 0):
 ``python3 chip_smoke.py --crossover [--src DIR]`` runs phase 4 alone on a
 smaller store (2^18 keys), against the port under ``DIR/repro_torch``
 (default ``src``); ``python3 chip_smoke.py --kernel-times [--src DIR]``
-only builds that port's library and times ``segment_sum`` and
+only builds that port's library and times ``segment_sum`` (random ids,
+and the lifetime histogram's: one a row of 32 slots) and
 ``gather_min64`` at the adaptive run's shapes, ``run_coalesce`` at M
 from 64 to 8,192 beside ``torch.sort``, one level's table probes as the
 store makes them (one level probe, or one launch a table on trees before
@@ -115,11 +121,14 @@ estimate, the routed sketch add at 4,096 and 1,024 keys, a routed
 multi_get's vSST finds at 128 to 4,096 keys (the host loop, and the routed
 call and the segmented kernel's tile and stride choices where the tree
 has them), ``merge_dedup`` at the benchmark's two shapes, and
-``hot_cold_partition`` and ``gc_lookup`` at the benchmark's two shapes
-(the partition's device time split by launch, ``gc_lookup`` beside
-``torch.searchsorted``), each as that tree makes it; ``--only
-hot_cold_partition,gc_lookup`` (the keys of its record) times only those
-parts.
+``hot_cold_partition``, ``gc_lookup`` and ``bloom_probe`` at the
+benchmark's two shapes (the partition's device time split by launch,
+``gc_lookup`` beside ``torch.searchsorted``, ``bloom_probe`` with the
+filter in L2 and cold), and ``segment_sum`` over 1,018 to 2^20 ids into
+1,024 to 2^25 slots (``segment_sum_shapes``: where its one launch gives
+way to the atomic form), each as that tree makes it; ``--only
+segment_sum,segment_sum_tracker,bloom_probe`` (the keys of its record)
+times only those parts.
 Run either on two trees in one call to compare them.
 
 Each phase's end is logged on the script's clock (``[time]`` lines).
@@ -139,6 +148,7 @@ that the records of the other forms; the last line is
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -222,8 +232,10 @@ CUDA_KERNELS = ("probe_kernel", "rank_search_kernel", "count_le_kernel",
                 "coalesce_smem_kernel",
                 "mark_kernel", "segment_sum_kernel", "gather_min64_kernel",
                 "sketch_scratch_kernel", "sketch_scale_kernel",
-                # segment_sum zeroes its counts with a memset on the stream
-                "Memset",
+                # segment_sum's atomic form past its one-launch budget, and
+                # its counts zeroed by a memset on the stream (the whole
+                # index form on trees before the one launch)
+                "segment_atomic_kernel", "Memset",
                 "gc_lookup_kernel", "bloom_probe_kernel",
                 "merge_path_kernel", "partition_count_kernel",
                 "partition_place_kernel",
@@ -530,6 +542,7 @@ def _check_segment_cases(rng, device, errs):
     import numpy as np
     import torch
     from repro_torch import kernels
+    from repro_torch.kernels.common import segment_range
     for m, slots, lo, hi in ((0, 8, 0, 8), (1, 1, 0, 1), (13, 7, -1, 9),
                              (300, 64, -1, 66), (100, 1000, -1, 1002),
                              (64, 10, -1, 0), (50, 10, 10, 40), (40, 1, -1, 2),
@@ -544,6 +557,38 @@ def _check_segment_cases(rng, device, errs):
         require((got.cpu().numpy() == np.bincount(
             valid, minlength=slots)[:slots]).all(),
             f"segment_sum disagrees with numpy at m={m} slots={slots}")
+    # the index form's one launch: slot counts either side of a CTA's
+    # range (kernels.cu kSegRange), no ids, an id column 8 bytes off a
+    # 16-byte boundary, the lifetime histogram's ids (one a row of 32),
+    # every id on one slot; the one launch at its caps (4,096 ids, 131,072
+    # slots) and the atomic form one past each, far more ids than slots,
+    # and a long column into many slots
+    r = segment_range()
+    for m, slots, kind in ((1018, r - 1, ""), (1018, r, ""), (1018, r + 1, ""),
+                           (1018, 2 * r + 1, ""), (0, r + 1, ""),
+                           (300, r + 1, "shift"), (1018, 32576, "tracker"),
+                           (4096, 1024, "one"), (4096, 131072, ""),
+                           (4097, 1000, ""), (1018, 131073, ""),
+                           (0, 131073, ""), (4097, 131073, "shift"),
+                           (5000, 1024, "one"), (400000, 100000, ""),
+                           (1 << 20, 1 << 25, "")):
+        if kind == "tracker":
+            ids = np.arange(m) * 32 + rng.integers(0, 32, m)
+        elif kind == "one":
+            ids = np.full(m, slots // 2)
+        else:
+            ids = rng.integers(-3, slots + 3, m)
+        t = torch.from_numpy(ids.astype(np.int64)).to(device)
+        if kind == "shift":
+            t = torch.cat([t[:1], t])[1:]
+        got = kernels.segment_sum(t, slots)
+        errs["segment_sum"] = max(errs["segment_sum"], max_abs_err(
+            (got,), (kernels.segment_sum_ref(t, slots),)))
+        valid = ids[(ids >= 0) & (ids < slots)]
+        require((got.cpu().numpy() == np.bincount(
+            valid, minlength=slots)).all(),
+            f"segment_sum disagrees with numpy at m={m} slots={slots} "
+            f"{kind}")
     base = np.array([1.5], np.float64).view(np.uint64)[0]
     for d, w, q in ((1, 1, 1), (2, 50, 33), (4, 100, 64), (3, 7, 1),
                     (2, 4096, 1), (2, 4096, 4096), (4, 1000, 20000)):
@@ -896,6 +941,29 @@ def _bench_kernel_checks(rng, device, errs) -> None:
             1 << 24, 1 << 25, q - q // 2).astype(np.uint32)])
         (may,) = _hold("bloom_probe", (*u32(probes), words, k, nbits), errs)
         require(bool(may[:q // 2].all()), f"bloom false negative at n={n}")
+    # bloom: k either side of the kernel's batch of 8 word loads, query
+    # counts around a warp, nbits below 32 * len(words) and no multiple of
+    # 32; and once with operands 4 bytes off a 16-byte boundary (the
+    # kernel loads 4-byte words only)
+    dense = np.bitwise_or.reduce(         # 7/8 of the bits set
+        rng.integers(0, 1 << 32, (3, 1000), dtype=np.uint64)).astype(np.uint32)
+    for k, q, shift in (*((k, q, 0) for k in (0, 1, 3, 7, 8, 9, 17)
+                          for q in (0, 1, 31, 33, 4097)), (7, 4097, 1)):
+        qs = rng.integers(0, 1 << 32, q, dtype=np.uint64).astype(np.uint32)
+        ops = (u32_at(qs, shift), u32_at(dense, shift))
+        for nbits in (32 * 1000, 32 * 1000 - 5, 997):
+            _hold("bloom_probe", (*ops, k, nbits), errs)
+    # nbits 2^32 - 1 (2^27 words, 512 MiB): the wrap and the fast modulo at
+    # the top of u32
+    top_words = torch.randint(-(1 << 31), 1 << 31, (1 << 27,),
+                              dtype=torch.int32, device=device)
+    for _ in range(2):
+        top_words |= torch.randint(-(1 << 31), 1 << 31, (1 << 27,),
+                                   dtype=torch.int32, device=device)
+    qs = rng.integers(0, 1 << 32, 4097, dtype=np.uint64).astype(np.uint32)
+    for k in (1, 7, 17):
+        _hold("bloom_probe", (*u32(qs), top_words, k, (1 << 32) - 1), errs)
+    del top_words
     # merge: the reference's (na, nb) cases, then empty runs, runs sharing
     # every key, rows equal in key and seq, key 0xFFFFFFFF; then the merge
     # path's tiles (the largest, of 8 rows a thread; every choice of rows a
@@ -1673,8 +1741,8 @@ def shapes_phase(capture: Capture, launches: dict, by_form: dict,
     recs[-1]["form"] = "key"
     recs[-1]["scaled"] = scale is not None
     recs[-1]["launches_by_form"] = by_form
-    # the index form at the lifetime histogram's largest add: its time
-    # holds its memset of the counts; one id -> one add
+    # the index form at the lifetime histogram's largest add (one launch
+    # that writes every count); one id -> one add
     ids, slots = best["segment_sum"][1]
     p = ids.shape[0]
     valid = ids[(ids >= 0) & (ids < slots)]
@@ -2151,24 +2219,28 @@ COALESCE_TIMES_M = (64, 256, 1024, 4096, 8192)
 def kernel_times_only(src: Path, only=None) -> None:
     """Build the port under ``src`` and time ``segment_sum`` and
     ``gather_min64`` at the adaptive run's largest inputs (1,018 ids into
-    32,576 slots; a 2 x 4,096 sketch and 5,433 queries) and
+    32,576 slots, random and as the lifetime histogram makes them, one a
+    row of 32 slots; a 2 x 4,096 sketch and 5,433 queries) and
     ``run_coalesce`` at M in ``COALESCE_TIMES_M`` (ranks below M / 10 as
     one multi_get's vSSTs, positions below 2^12 as the 2,621 records of a
     1 GiB store's vSST) on
     seeded data: the build's wall time, and each kernel's device time per
     launch in three profiler sessions of 200 launches each and by
-    ``queued_ms``; for ``run_coalesce`` also the wrapper call
-    (``call_ms``) and ``torch.sort`` of the packed pairs beside it, after
+    ``queued_ms`` (``segment_sum``'s also split by device operation, and
+    with its operands out of L2); for ``run_coalesce`` also the wrapper
+    call (``call_ms``) and ``torch.sort`` of the packed pairs beside it, after
     holding the kernel against its plain version.  Then a level's table
     probes (``_level_times``), the routed sketch estimate
     (``_estimate_times``) and add (``_sketch_add_times``), the tracker's
     write observation (``_observe_times``), the level file assignment
     (``_interval_times``), ``rank_probe``'s run form (``_rank_times``), a
     multi_get's vSST finds (``_vsst_find_times``), ``merge_dedup``
-    (``_merge_times``), ``hot_cold_partition`` (``_partition_times``) and
-    ``gc_lookup`` (``_gc_lookup_times``), as the store makes them on that
-    tree.  ``only``: the names of the parts to run (the keys of the
-    result), the build always; None for all."""
+    (``_merge_times``), ``hot_cold_partition`` (``_partition_times``),
+    ``gc_lookup`` (``_gc_lookup_times``), ``bloom_probe``
+    (``_bloom_times``) and ``segment_sum`` at ``SEGMENT_SHAPES``
+    (``_segment_shape_times``), as the store makes them on that tree.  ``only``:
+    the names of the parts to run (the keys of the result), the build
+    always; None for all."""
     import numpy as np
     import torch
     sys.path.insert(0, str(src.resolve()))
@@ -2185,10 +2257,15 @@ def kernel_times_only(src: Path, only=None) -> None:
         return only is None or part in only
     slots = 32576
     ids = torch.from_numpy(rng.integers(0, slots, 1018)).to("cuda")
+    # the lifetime histogram's ids: one a row of 32 slots, ascending
+    rows = torch.from_numpy(np.arange(1018) * 32
+                            + rng.integers(0, 32, 1018)).to("cuda")
     vals = rng.random((2, 4096)) * 1e6
     bits = torch.from_numpy(vals.view(np.int64).copy()).to("cuda")
     idx = torch.from_numpy(rng.integers(0, 4096, (5433, 2))).to("cuda")
     for name, fn in (("segment_sum", lambda: kernels.segment_sum(ids, slots)),
+                     ("segment_sum_tracker",
+                      lambda: kernels.segment_sum(rows, slots)),
                      ("gather_min64",
                       lambda: kernels.gather_min64(bits, idx))):
         if not want(name):
@@ -2196,6 +2273,11 @@ def kernel_times_only(src: Path, only=None) -> None:
         out[name] = [device_ms(fn, iters=200, only=CUDA_KERNELS, label=name)
                      for _ in range(3)]
         out[name + "_queued"] = queued_ms(fn, 200)
+        if name.startswith("segment_sum"):
+            out[name + "_by_kernel_us"] = _split_us(fn)
+            out[name + "_cold"] = [
+                device_ms(_after_flush(fn), iters=20, only=CUDA_KERNELS,
+                          label=f"{name} cold") for _ in range(2)]
     for m in COALESCE_TIMES_M if want("run_coalesce") else ():
         r = torch.from_numpy(rng.integers(0, max(2, m // 10), m)).to("cuda")
         p = torch.from_numpy(rng.integers(0, 1 << 12, m)).to("cuda")
@@ -2224,7 +2306,9 @@ def kernel_times_only(src: Path, only=None) -> None:
                      ("vsst_find", lambda: _vsst_find_times(kernels)),
                      ("merge_dedup", _merge_times),
                      ("hot_cold_partition", _partition_times),
-                     ("gc_lookup", _gc_lookup_times)):
+                     ("gc_lookup", _gc_lookup_times),
+                     ("bloom_probe", _bloom_times),
+                     ("segment_sum_shapes", _segment_shape_times)):
         if want(part):
             out[part] = fn()
     print(json.dumps({"kernel_times": out}))
@@ -2826,6 +2910,91 @@ def _gc_lookup_times(device="cuda") -> dict:
     return res
 
 
+# bytes written between two launches for a cold-L2 time: 2.5x the H100's
+# 50 MB L2
+L2_FLUSH_BYTES = 128 << 20
+
+
+@functools.lru_cache(maxsize=None)
+def _flush_buffer():
+    import torch
+    return torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+
+
+def _after_flush(fn):
+    """``fn`` behind a write of L2_FLUSH_BYTES, so that it finds its
+    operands out of L2 (a torch fill kernel, which no ``CUDA_KERNELS`` name
+    matches, so a profiled time leaves it out)."""
+    def cold():
+        _flush_buffer().fill_(7)
+        return fn()
+    return cold
+
+
+# segment_sum's index form past the tracker's size: (ids, slots), the ids
+# uniform over the slots
+SEGMENT_SHAPES = tuple((p, s) for s in (1024, 32576, 65536, 131072, 262144,
+                                        1 << 20, 1 << 25)
+                       for p in (1018, 2048, 4096, 6144, 8192, 16384,
+                                 1 << 20))
+
+
+def _segment_shape_times(device="cuda") -> dict:
+    """``segment_sum``'s index form at ``SEGMENT_SHAPES``: held against
+    numpy's bincount, then its device time (memset included; two sets of
+    three profiler sessions of 10 launches), as that tree makes it."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import segment_sum
+    rng = np.random.default_rng(23)
+    res = {}
+    for p, slots in SEGMENT_SHAPES:
+        ids_np = rng.integers(0, slots, p)
+        ids = torch.from_numpy(ids_np).to(device)
+        got = segment_sum(ids, slots).cpu().numpy()
+        require((got == np.bincount(ids_np, minlength=slots)).all(),
+                f"segment_sum disagrees with numpy at {p} x {slots}")
+
+        def fn():
+            return segment_sum(ids, slots)
+        res[f"{p}x{slots}"] = [device_ms(fn, iters=10, only=CUDA_KERNELS,
+                                         label=f"segment_sum {p}x{slots}")
+                               for _ in range(2)]
+    log(f"[kernel-times] segment_sum shapes: {json.dumps(res)}")
+    return res
+
+
+def _bloom_times(device="cuda") -> dict:
+    """``bloom_probe`` at the kernel benchmark's ``bench`` (1,024 queries
+    against 8,192 keys' filter) and ``deploy`` (65,536 queries, k 7,
+    nbits 10,485,760) shapes: held against its plain version, then its
+    device time with the filter in L2 (two sets of three profiler sessions
+    of 100 launches), the wrapper call's, and its cold-L2 device time (an
+    L2_FLUSH_BYTES buffer written before each launch, the write not
+    counted; two sets of three sessions of 20 launches)."""
+    from repro_torch.kernels import bloom_probe
+    res = {}
+    for shapes, shape, args, want in _bench_args("bloom_probe", device):
+        require(max_abs_err(bloom_probe(*args), want) == 0,
+                f"bloom_probe disagrees with its plain version at the "
+                f"{shapes} shape")
+
+        def fn():
+            return bloom_probe(*args)
+        rec = {"shape": shape,
+               "ms": [device_ms(fn, iters=100, only=CUDA_KERNELS,
+                                label=f"bloom_probe {shapes}")
+                      for _ in range(2)],
+               "call_ms": call_ms(fn, iters=100),
+               "cold_ms": [device_ms(_after_flush(fn), iters=20,
+                                     only=CUDA_KERNELS,
+                                     label=f"bloom_probe cold {shapes}")
+                           for _ in range(2)]}
+        log(f"[kernel-times] bloom_probe {shapes}: {json.dumps(rec)}")
+        res[shapes] = rec
+    return res
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2845,7 +3014,9 @@ def main(argv) -> int:
                          "table probes, the sketch estimate and add, the "
                          "tracker's observe_writes, interval_rank, "
                          "rank_probe's two forms, a multi_get's vSST finds, "
-                         "merge_dedup, hot_cold_partition and gc_lookup")
+                         "merge_dedup, hot_cold_partition, gc_lookup, "
+                         "bloom_probe and segment_sum over 1,018 to 2^20 "
+                         "ids into 1,024 to 2^25 slots")
     ap.add_argument("--only", default=None,
                     help="with --kernel-times: the parts to time, comma-"
                          "separated (the keys of its record, e.g. "

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from ..common import U32_MAX, check_u32_columns, launch, outputs
+from ..common import (U32_MAX, check_u32_columns, fast_mod_magic, launch,
+                      outputs)
 from .ref import bloom_build_ref, bloom_probe_ref
 
 # The reference kernel fetches filter words in chunks of WORD_CHUNK u32
@@ -53,7 +54,7 @@ def bloom_probe(queries: torch.Tensor, words: torch.Tensor, k: int,
     (out,) = outputs(q, dev, torch.bool)
     if q:
         launch("bloom_probe", dev, queries.data_ptr(), q, words.data_ptr(),
-               nbits, k, out.data_ptr())
+               nbits, *fast_mod_magic(nbits), k, out.data_ptr())
         bloom_probe.launches += 1
     return out
 

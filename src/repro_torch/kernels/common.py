@@ -177,7 +177,7 @@ _SIGNATURES = {
     "gather_min64": (_P, _I64, _I64, _P, _I64, _P, _P),
     "sketch_estimate": (_P, _I64, _I64, _I64, _I64, _P, _P, _I64, _P, _P),
     "gc_lookup": (_P, _I64, _P, _P, _P, _I64, _P, _P, _P, _I64, _P),
-    "bloom_probe": (_P, _I64, _P, _I64, _I64, _P, _P),
+    "bloom_probe": (_P, _I64, _P, _I64, _I64, _I64, _I64, _P, _P),
     "merge_dedup": (_P, _P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _I64,
                     _P),
     "hot_cold_partition": (_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _I64,
@@ -198,7 +198,7 @@ def library() -> ctypes.CDLL:
     lib.scav_error_string.restype = ctypes.c_char_p
     for name in ("scav_smem_sort_cap", "scav_partition_tile",
                  "scav_probe_tile_words", "scav_count_le_smem_files",
-                 "scav_merge_threads"):
+                 "scav_merge_threads", "scav_segment_range"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int64
     lib.scav_stream_sync.argtypes = [_P]
@@ -219,6 +219,13 @@ def count_le_smem_files() -> int:
     (the library's own constant); a larger level, like one of a few files,
     is searched in device memory."""
     return int(library().scav_count_le_smem_files())
+
+
+@functools.lru_cache(maxsize=None)
+def segment_range() -> int:
+    """Slots a CTA of ``segment_sum``'s one-launch index form at the
+    tracker's size (the library's constant; longer id columns widen it)."""
+    return int(library().scav_segment_range())
 
 
 @functools.lru_cache(maxsize=None)

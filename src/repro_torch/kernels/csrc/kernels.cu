@@ -764,19 +764,92 @@ mark_kernel(const u64* __restrict__ s, i64 m, i64 window,
 // This index form carries the lifetime histogram's adds; the sketch's adds
 // take the key form, sketch_add, below.
 //
-// Bound: latency.  The adaptive tracker's batches are a few thousand ids
-// into a few thousand to 32K slots (64-256 KB), so the bytes bound is
-// well under a microsecond and one launch plus one memset set the time.
-// The TPU kernel one-hot-compared every id against every slot tile (no
-// vector scatter-add there); here each thread adds its id's one into the
-// zeroed output with a 64-bit atomicAdd.  Integer adds commute, so the
-// counts are exact whatever order the atomics land in.
-__global__ void segment_sum_kernel(const i64* __restrict__ ids, i64 n,
-                                   i64 n_slots, u64* __restrict__ out) {
-  i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+// Bound: latency.  The adaptive tracker's largest add is ~1,000 ids into
+// ~32K slots (8 KB in, 256 KB out): the bytes bound is under 0.1 us, so a
+// launch's fixed cost sets the time.  The TPU kernel one-hot-compared
+// every id against every slot tile (no vector scatter-add there).  The
+// first port zeroed the int64 counts with a memset and then added each id
+// with a 64-bit global atomic: two device operations a call, 2.26 us at
+// the tracker's largest add.  Design: one launch, no memset and no global
+// atomic, 1.41-1.45 us there (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6).
+// CTA c owns the slots [c * kSegRange, (c + 1) * kSegRange) and counts
+// them in shared memory (u32).  Each thread issues its first kLoadBatch
+// id loads (the whole column is read by every CTA, from L2), zeroes its
+// share of the counts while they are in flight, and after a barrier adds
+// each id in the range with a shared-memory atomic; after a second
+// barrier the CTA writes its range once as int64, zeros included, two
+// counts a 16-byte store.  Integer adds commute, so the counts are exact
+// whatever order the atomics land in.  Measured at the tracker's largest
+// add: 512 slots a CTA (64 CTAs) at 256 threads beat 256 and 1,024 by
+// 0.05-0.08 us, 4,096 by 0.6 and one CTA by 5.5+; the loads issued after
+// the zeroing cost 0.08-0.10 us more, and 16-byte id loads 0.13-0.20 more.
+//
+// Every CTA reads the whole id column and every CTA costs a launch slot,
+// so the one launch loses past kSegMaxIds ids or kSegMaxSlots slots to
+// the first port's design, which the host then takes (the atomic form: a
+// memset of the counts, then one 64-bit global atomic an id,
+// segment_atomic_kernel; its work is P + n_slots whatever the shape).
+// Measured over 1,018 to 2^20 ids into 1,024 to 2^25 slots (NVIDIA H100
+// 80GB HBM3, 700 W; PERF.md §6):
+// the one launch is faster at up to 4,096 ids into up to 131,072 slots
+// (e.g. 2.03 against 2.29 us at 4,096 x 1,024, 1.69 against 2.37 at
+// 1,018 x 131,072) and slower at 6,144 ids or 262,144 slots and past
+// (2.57 against 2.28 at 6,144 x 1,024; 3.05 against 2.62 at 4,096 x
+// 262,144; 236 against 57 at 2^20 x 1,024).
+constexpr int kSegThreads = 256;
+constexpr i64 kSegRange = 512;                   // slots a CTA
+constexpr i64 kSegMaxIds = 4096;                 // ids of the one launch
+constexpr i64 kSegMaxSlots = 256 * kSegRange;    // slots of the one launch
+
+__global__ void __launch_bounds__(kSegThreads)
+segment_sum_kernel(const i64* __restrict__ ids, i64 n, i64 n_slots,
+                   u64* __restrict__ out) {
+  __shared__ __align__(16) u32 cnt[kSegRange];
+  const u64 s0 = (u64)blockIdx.x * (u64)kSegRange;
+  const u64 len = (u64)n_slots - s0 < (u64)kSegRange ? (u64)n_slots - s0
+                                                     : (u64)kSegRange;
+  const i64 step = (i64)kSegThreads * kLoadBatch;
+  i64 v[kLoadBatch];
+  auto load = [&](i64 i0) {
+#pragma unroll
+    for (int b = 0; b < kLoadBatch; ++b) {
+      const i64 i = i0 + (i64)b * kSegThreads;
+      v[b] = i < n ? ids[i] : -1;
+    }
+  };
+  i64 i0 = threadIdx.x;
+  load(i0);                          // in flight while the counts zero
+  for (u64 i = threadIdx.x; i < len; i += kSegThreads) cnt[i] = 0u;
+  __syncthreads();
+  while (true) {
+#pragma unroll
+    for (int b = 0; b < kLoadBatch; ++b) {
+      const u64 r = (u64)v[b] - s0;  // ids outside the range wrap past len
+      if (r < len) atomicAdd(&cnt[r], 1u);
+    }
+    i0 += step;
+    if (i0 >= n) break;
+    load(i0);
+  }
+  __syncthreads();
+  // s0 is even (kSegRange is), so out + s0 keeps out's 16-byte alignment
+  ulonglong2* o2 = reinterpret_cast<ulonglong2*>(out + s0);
+  const uint2* c2 = reinterpret_cast<const uint2*>(cnt);
+  for (u64 p = threadIdx.x; p < (len >> 1); p += kSegThreads) {
+    const uint2 c = c2[p];
+    o2[p] = make_ulonglong2(c.x, c.y);
+  }
+  if ((len & 1) && threadIdx.x == 0) out[s0 + len - 1] = cnt[len - 1];
+}
+
+// The atomic form: out zeroed before it, one id a thread.
+__global__ void __launch_bounds__(kProbeThreads)
+segment_atomic_kernel(const i64* __restrict__ ids, i64 n, i64 n_slots,
+                      u64* __restrict__ out) {
+  const i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  i64 s = ids[i];
-  if (s >= 0 && s < n_slots) atomicAdd(&out[s], 1ull);
+  const u64 s = (u64)ids[i];
+  if (s < (u64)n_slots) atomicAdd(&out[s], 1ull);
 }
 
 // ---------------------------------------------------------------------------
@@ -1013,12 +1086,29 @@ gc_lookup_kernel(const u32* __restrict__ q, i64 nq,
 // bloom_probe: replaces bloom_probe_pallas (src/repro/kernels/bloom/
 // kernel.py:49).  h1 = mix32(q), h2 = mix32(q ^ MIX1) | 1; the query may
 // be in the set when bit (h1 + j*h2) mod nbits is set for every j < k,
-// in wrapping u32 arithmetic, which u32 here gives for free.
+// h1 + j*h2 in wrapping u32 arithmetic (which u32 gives for free) before
+// the modulo.
 //
-// Bound: latency.  k independent word gathers per query from a filter of
-// a few MB (L2-resident).  The TPU kernel fetched each word by a one-hot
-// multiply-reduce over the whole filter; here one thread per query hashes
-// in registers and gathers its k words directly.
+// Bound: L2 sectors.  Q queries x k independent 4-byte gathers from a
+// filter of a few MB (L2-resident), each its own 32-byte sector: at the
+// 1 GiB store's shape (65,536 queries, k 7, a 1.31 MB filter) 14.7 MB of
+// L2 sector traffic against the 1.64 MB of bytes the bound counts.  The
+// TPU kernel fetched each word by a one-hot multiply-reduce over the
+// whole filter.  The first port ran one thread a query over a loop of k
+// probes with a runtime `% nbits`: 4.89-4.96 us at that shape.  All k
+// word loads of a query issued before the first test (a batch of 8) took
+// 4.80-5.01 us: the time follows the sectors read (~3 TB/s of them), not
+// the round trips.  Design: fewer sectors.  One thread a query tests its
+// first two bits, then the rest in rounds of up to kBloomBatch only while
+// every bit so far is set; a round's bit positions are computed first
+// (the modulo a multiply by nbits' FastMod magic, not a division), its
+// loads issued together, then its tests.  With the filter half full an
+// absent key reads 2 + 5/4 sectors on average instead of 7.  Rounds that
+// stop sooner (a first round of 1, then rounds of 1, 2 or 3) read fewer
+// sectors and were 4-8% faster at 65,536 queries, but 6-35% slower at
+// 1,024, where a round trip costs more than its sectors (8 CTAs); two
+// queries a thread, loads from L2 only and CTAs of 32 to 512 threads lost
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6).
 __device__ __forceinline__ u32 mix32(u32 x) {
   x ^= x >> 16;
   x *= 0x85EBCA6Bu;
@@ -1027,18 +1117,43 @@ __device__ __forceinline__ u32 mix32(u32 x) {
   return x ^ (x >> 16);
 }
 
-__global__ void bloom_probe_kernel(const u32* __restrict__ q, i64 nq,
-                                   const u32* __restrict__ words, u32 nbits,
-                                   i64 k, bool* __restrict__ out) {
-  i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nq) return;
-  u32 key = q[i];
-  u32 h1 = mix32(key), h2 = mix32(key ^ 0x85EBCA6Bu) | 1u;
-  bool all = true;
-  for (i64 j = 0; j < k; ++j) {
-    u32 b = (h1 + (u32)j * h2) % nbits;
-    all &= ((words[b >> 5] >> (b & 31u)) & 1u) != 0;
+constexpr int kBloomThreads = 128;
+constexpr int kBloomFirst = 2;      // words of the first round
+constexpr int kBloomBatch = 8;      // words of each later round, at most
+
+// Bits [j0, j0 + kN) of one query: every word load issued, then every
+// test.  -> all of them set.
+template <int kN>
+__device__ __forceinline__ bool bloom_round(const u32* __restrict__ words,
+                                            const FastMod& nb, u32 h1, u32 h2,
+                                            i64 j0, i64 k) {
+  u32 w[kN], sh[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    if (j0 + j < k) {
+      const u32 b = (u32)fast_mod(h1 + (u32)(j0 + j) * h2, nb);
+      w[j] = words[b >> 5];
+      sh[j] = b & 31u;
+    }
   }
+  bool all = true;
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+    if (j0 + j < k) all &= ((w[j] >> sh[j]) & 1u) != 0;
+  return all;
+}
+
+__global__ void __launch_bounds__(kBloomThreads)
+bloom_probe_kernel(const u32* __restrict__ q, i64 nq,
+                   const u32* __restrict__ words, FastMod nb, i64 k,
+                   bool* __restrict__ out) {
+  const i64 i = (i64)blockIdx.x * kBloomThreads + threadIdx.x;
+  if (i >= nq) return;
+  const u32 key = q[i];
+  const u32 h1 = mix32(key), h2 = mix32(key ^ 0x85EBCA6Bu) | 1u;
+  bool all = bloom_round<kBloomFirst>(words, nb, h1, h2, 0, k);
+  for (i64 j0 = kBloomFirst; all && j0 < k; j0 += kBloomBatch)
+    all = bloom_round<kBloomBatch>(words, nb, h1, h2, j0, k);
   out[i] = all;
 }
 
@@ -1670,16 +1785,22 @@ int sketch_add(void* counts, i64 d, i64 w, i64 wm, i64 wl, const void* keys,
   return (int)cudaGetLastError();
 }
 
-// out: n_slots int64 counters, zeroed here on the stream before the adds.
+// n_slots >= 1 int64 counters, every one written: by one launch, or past
+// kSegMaxIds ids or kSegMaxSlots slots (with any ids) by a memset and one
+// launch of the atomic form.
 int segment_sum(const void* ids, i64 n, i64 n_slots, void* out,
                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(out, 0, (size_t)n_slots * sizeof(u64),
-                                    st);
-  if (err != cudaSuccess) return (int)err;
-  if (n == 0) return (int)cudaGetLastError();
-  segment_sum_kernel<<<blocks_for(n, kProbeThreads), kProbeThreads, 0, st>>>(
-      (const i64*)ids, n, n_slots, (u64*)out);
+  if (n > kSegMaxIds || (n > 0 && n_slots > kSegMaxSlots)) {
+    cudaError_t err = cudaMemsetAsync(out, 0, (size_t)n_slots * sizeof(u64),
+                                      st);
+    if (err != cudaSuccess) return (int)err;
+    segment_atomic_kernel<<<blocks_for(n, kProbeThreads), kProbeThreads, 0,
+                            st>>>((const i64*)ids, n, n_slots, (u64*)out);
+    return (int)cudaGetLastError();
+  }
+  segment_sum_kernel<<<blocks_for(n_slots, (int)kSegRange), kSegThreads, 0,
+                       st>>>((const i64*)ids, n, n_slots, (u64*)out);
   return (int)cudaGetLastError();
 }
 
@@ -1724,14 +1845,19 @@ int gc_lookup(const void* q, i64 nq, const void* keys, const void* vids,
   return (int)cudaGetLastError();
 }
 
-// nbits in [1, 2^32); words holds at least ceil(nbits / 32) words.
-int bloom_probe(const void* q, i64 nq, const void* words, i64 nbits, i64 k,
-                void* out, void* stream) {
-  bloom_probe_kernel<<<blocks_for(nq, kProbeThreads), kProbeThreads, 0,
+// nbits in [1, 2^32) with its FastMod magic (nbm, nbl); words holds at
+// least ceil(nbits / 32) words.
+int bloom_probe(const void* q, i64 nq, const void* words, i64 nbits,
+                i64 nbm, i64 nbl, i64 k, void* out, void* stream) {
+  const FastMod nb = {(u64)nbits, (u64)nbm, nbl};
+  bloom_probe_kernel<<<blocks_for(nq, kBloomThreads), kBloomThreads, 0,
                        (cudaStream_t)stream>>>(
-      (const u32*)q, nq, (const u32*)words, (u32)nbits, k, (bool*)out);
+      (const u32*)q, nq, (const u32*)words, nb, k, (bool*)out);
   return (int)cudaGetLastError();
 }
+
+// Slots a CTA of the segment_sum index form at the tracker's size.
+i64 scav_segment_range() { return kSegRange; }
 
 // Threads a CTA of the merge (a tile is items of them a thread).
 i64 scav_merge_threads() { return kMergeThreads; }

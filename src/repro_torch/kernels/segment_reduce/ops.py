@@ -20,7 +20,12 @@ from .ref import (gather_min64_ref, segment_sum_ref, sketch_add_ref,
 
 def segment_sum(ids: torch.Tensor, n_slots: int) -> torch.Tensor:
     """Occurrence count per slot of an id column; ids outside
-    [0, n_slots) are ignored.  ids (P,) int64 -> (n_slots,) int64."""
+    [0, n_slots) are ignored.  ids (P,) int64 -> (n_slots,) int64.
+
+    On the card one launch writes every count, zeros included (no
+    memset); past 4,096 ids, or 131,072 slots with any ids (``kernels.cu``
+    ``kSegMaxIds``, ``kSegMaxSlots``), the counts are zeroed by a memset
+    and added with one atomic an id."""
     dev = check_columns("segment_sum", ids)
     n_slots = int(n_slots)
     if ids.dim() != 1 or n_slots < 0:
@@ -33,8 +38,7 @@ def segment_sum(ids: torch.Tensor, n_slots: int) -> torch.Tensor:
     if n_slots:
         launch("segment_sum", dev, ids.data_ptr(), p, n_slots,
                out.data_ptr())
-        if p:
-            segment_sum.launches += 1
+        segment_sum.launches += 1
     return out
 
 

@@ -131,6 +131,47 @@ def test_segment_sum_matches_plain(cuda, m, slots):
     _equal((K.segment_sum(ids, slots),), (K.segment_sum_ref(ids, slots),))
 
 
+# the index form's one launch: slot counts either side of a CTA's range
+# ("r", kernels.cu kSegRange), no ids, ids outside the slots, an id column
+# 8 bytes off a 16-byte boundary, the lifetime histogram's ids (one a row
+# of 32), every id on one slot; the one launch at its caps (4,096 ids,
+# 131,072 slots: kSegMaxIds, kSegMaxSlots) and the atomic form one past
+# each, with no ids past the slot cap (the one launch writes the zeros),
+# far more ids than slots, and a long column into many slots
+SEGMENT_RANGE_CASES = [
+    (1018, "r-1", "random"), (1018, "r", "random"), (1018, "r+1", "random"),
+    (1018, "2r+1", "random"), (0, "r+1", "random"), (0, 1, "random"),
+    (1, "r", "random"), (300, "r+1", "shift"), (301, 5001, "shift"),
+    (1018, 32576, "tracker"), (4096, 1024, "one_slot"),
+    (4096, 131072, "random"), (4097, 1000, "random"),
+    (1018, 131073, "random"), (0, 131073, "random"), (4097, 131073, "shift"),
+    (5000, 1024, "one_slot"), (50000, 17, "random"),
+    (400000, 100000, "random"), (1 << 20, 1 << 25, "random")]
+
+
+@pytest.mark.parametrize("p,slots,kind", SEGMENT_RANGE_CASES)
+def test_segment_sum_ranges_match_plain(cuda, p, slots, kind):
+    if isinstance(slots, str):
+        from repro_torch.kernels.common import segment_range
+        r = segment_range()
+        slots = {"r-1": r - 1, "r": r, "r+1": r + 1, "2r+1": 2 * r + 1}[slots]
+    rng = np.random.default_rng(p + slots)
+    if kind == "tracker":
+        ids = np.arange(p) * 32 + rng.integers(0, 32, p)
+    elif kind == "one_slot":
+        ids = np.full(p, slots // 2)
+    else:
+        ids = rng.integers(-3, slots + 3, p)
+    t = torch.from_numpy(ids.astype(np.int64)).to(cuda)
+    if kind == "shift":
+        t = torch.cat([t[:1], t])[1:]
+        assert t.data_ptr() % 16 == 8
+    got = K.segment_sum(t, slots)
+    _equal((got,), (K.segment_sum_ref(t, slots),))
+    valid = ids[(ids >= 0) & (ids < slots)]
+    assert (got.cpu().numpy() == np.bincount(valid, minlength=slots)).all()
+
+
 @pytest.mark.parametrize("d,w,q", [(1, 1, 1), (2, 50, 33), (4, 100, 64),
                                    (3, 7, 1), (2, 4096, 4096)])
 def test_gather_min64_matches_plain(cuda, d, w, q):
@@ -484,6 +525,66 @@ def test_benchmark_kernels_match_plain(cuda, kernel):
         if not isinstance(got, tuple):
             got, want = (got,), (want,)
         _equal(got, want)
+
+
+def _unmix32(h: int) -> int:
+    """The key whose murmur3 finalizer (``mix32``) is ``h``."""
+    def unshift(x, s):
+        y = x
+        for _ in range(32 // s):
+            y = x ^ (y >> s)
+        return y & 0xFFFFFFFF
+    x = unshift(h, 16)
+    x = (x * pow(0xC2B2AE35, -1, 1 << 32)) & 0xFFFFFFFF
+    x = unshift(x, 13)
+    x = (x * pow(0x85EBCA6B, -1, 1 << 32)) & 0xFFFFFFFF
+    return unshift(x, 16)
+
+
+def _dense_words(rng, n):
+    """n filter words with 7/8 of their bits set (so that some queries
+    find every bit set at k up to 17)."""
+    return np.bitwise_or.reduce(
+        rng.integers(0, 1 << 32, (3, n), dtype=np.uint64)).astype(np.uint32)
+
+
+# bloom_probe: k either side of the kernel's batch of 8 word loads and past
+# two, query counts around a warp and a CTA, nbits below 32 * len(words)
+# and no multiple of 32; and once with queries and words 4 bytes off a
+# 16-byte boundary (the kernel loads 4-byte words only)
+@pytest.mark.parametrize("k,q,shift", [
+    *((k, q, 0) for k in (0, 1, 3, 7, 8, 9, 17)
+      for q in (0, 1, 31, 33, 4097)), (7, 4097, 1)])
+def test_bloom_probe_edges_match_plain(cuda, k, q, shift):
+    rng = np.random.default_rng(100 * k + q + shift)
+    words = _dense_words(rng, 1000)
+    qs = rng.integers(0, 1 << 32, q, dtype=np.uint64).astype(np.uint32)
+    qt = _u32(np.concatenate([np.zeros(shift, np.uint32), qs]), cuda)[shift:]
+    wt = _u32(np.concatenate([np.zeros(shift, np.uint32), words]),
+              cuda)[shift:]
+    assert q == 0 or qt.data_ptr() % 16 == 4 * shift
+    for nbits in (32 * 1000, 32 * 1000 - 5, 997):
+        _equal((K.bloom_probe(qt, wt, k, nbits),),
+               (K.bloom_probe_ref(qt, wt, k, nbits),))
+
+
+def test_bloom_probe_at_the_top_of_u32(cuda):
+    """nbits 2^32 - 1 (2^27 words, 512 MiB): the wrapping h1 + j*h2 and
+    the fast modulo at the top of the u32 range, with queries whose h1 is
+    2^32 - 1 (bit 0) and 2^32 - 2 (the filter's last bit)."""
+    rng = np.random.default_rng(32)
+    n_words = 1 << 27
+    wt = torch.randint(-(1 << 31), 1 << 31, (n_words,), dtype=torch.int32,
+                       device=cuda)
+    for _ in range(2):
+        wt |= torch.randint(-(1 << 31), 1 << 31, (n_words,),
+                            dtype=torch.int32, device=cuda)
+    qs = rng.integers(0, 1 << 32, 4097, dtype=np.uint64).astype(np.uint32)
+    qs[:4] = [_unmix32(0xFFFFFFFF), _unmix32(0xFFFFFFFE), 0, 0xFFFFFFFF]
+    qt = _u32(qs, cuda)
+    for k in (1, 2, 7, 17):
+        _equal((K.bloom_probe(qt, wt, k, (1 << 32) - 1),),
+               (K.bloom_probe_ref(qt, wt, k, (1 << 32) - 1),))
 
 
 # rank_probe's run form: runs either side of the staging threshold, at the

@@ -297,6 +297,39 @@ def test_bloom_property(keys, probes, bits_per_key):
     assert got[:len(keys)].all()
 
 
+# probe counts past one batch of the kernel's word loads (bits/key 1, 16
+# and 24: k 1, 11 and 17)
+@pytest.mark.parametrize("bits_per_key,k_want", [(1, 1), (16, 11), (24, 17)])
+def test_bloom_probe_counts_past_a_batch(bits_per_key, k_want):
+    rng = np.random.default_rng(bits_per_key)
+    keys = _bloom_keys(rng, 700)
+    words, k, nbits = R.bloom_build(keys, bits_per_key)
+    pw, pk, pn = T.bloom_build(u32_tensor(keys), bits_per_key)
+    assert (pk, pn) == (k, nbits) and k == k_want
+    assert_array_equal(u32(pw), np.asarray(words))
+    probes = np.concatenate([keys[:200], rng.integers(
+        1 << 24, 1 << 25, 300).astype(np.uint32)])
+    got = T.bloom_probe(u32_tensor(probes), pw, k, nbits).numpy()
+    assert_array_equal(got, np.asarray(R.bloom_probe_ref(
+        jnp.asarray(probes), words, k, nbits)))
+    assert got[:200].all(), "bloom false negative"
+
+
+# filters whose nbits lies below 32 * len(words) and is no multiple of 32:
+# bits are taken modulo nbits, never modulo the words' bits
+@pytest.mark.parametrize("nbits", [1, 31, 33, 1000, 32 * 40 - 1])
+def test_bloom_probe_nbits_below_the_words(nbits):
+    rng = np.random.default_rng(nbits)
+    words = np.bitwise_or.reduce(      # 7/8 of the bits set
+        rng.integers(0, 1 << 32, (3, 40), dtype=np.uint64)).astype(np.uint32)
+    probes = rng.integers(0, 1 << 32, 500, dtype=np.uint64).astype(np.uint32)
+    for k in (0, 1, 3, 9):
+        got = T.bloom_probe(u32_tensor(probes), u32_tensor(words), k,
+                            nbits).numpy()
+        assert_array_equal(got, np.asarray(R.bloom_probe_ref(
+            jnp.asarray(probes), jnp.asarray(words), k, nbits)))
+
+
 def test_bloom_probe_checks_its_filter():
     w = u32_tensor(np.zeros(4, np.uint32))
     q = u32_tensor(np.arange(3, dtype=np.uint32))

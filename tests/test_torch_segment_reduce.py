@@ -75,6 +75,30 @@ def test_segment_sum_property(ids, slots):
     assert_array_equal(got, R.segment_sum(a, slots, mode="xla"))
 
 
+# the inputs the index form's one-launch kernel must count exactly: the
+# lifetime histogram's add (one id a row of 32 slots, ascending, distinct),
+# every id on one slot, and far more ids than slots (out-of-range ones too)
+@pytest.mark.parametrize("case", ["tracker_1018", "tracker_33", "one_slot",
+                                  "many_ids"])
+def test_segment_sum_contract_inputs(case):
+    rng = np.random.default_rng(23)
+    if case.startswith("tracker"):
+        rows = int(case.split("_")[1])
+        ids = np.arange(rows) * 32 + rng.integers(0, 32, rows)
+        slots = rows * 32
+    elif case == "one_slot":
+        ids, slots = np.full(5000, 777), 1024
+    else:
+        ids, slots = rng.integers(-3, 20, 50000), 17
+    ids = ids.astype(np.int64)
+    got = T.segment_sum(torch.from_numpy(ids), slots).numpy()
+    assert_array_equal(got, R.segment_sum(ids, slots, mode="xla"))
+    valid = ids[(ids >= 0) & (ids < slots)]
+    assert_array_equal(got, np.bincount(valid, minlength=slots))
+    if case == "one_slot":
+        assert got[777] == 5000 and got.sum() == 5000
+
+
 # ----------------------------------------------------------- gather_min64
 @pytest.mark.parametrize("d,w,q", [(1, 1, 1), (2, 50, 33), (4, 100, 64),
                                    (3, 7, 1), (2, 4096, 4096)])
