@@ -98,12 +98,45 @@ Phases, each of which raises on failure (exit code != 0):
              package's parity test: the port on the card with kernels on
              (at the default routing threshold, and with every probe
              routed) against the port on the CPU with kernels off (stats,
-             every multi_get vid, every scan row);
+             every multi_get vid, every scan row); then, on ``scavenger``
+             and ``titan``, a 1-shard ``ShardedStore`` against ``Store`` on
+             the card, and 3-shard ``range`` and ``hash`` fleets under the
+             ``fleet`` and ``round_robin`` schedulers on the card against
+             the same fleets on the CPU with kernels off;
 8. crash   — the durability crash matrix on the card: seven engines x the
              five store crash points (the GC points only where the engine
              runs standalone GC), each recovered with ``Store.open(...,
              device="cuda")`` and held against an uninterrupted CPU run at
-             the crash watermark.
+             the crash watermark; then the four fleet crash points
+             (``mid_migration_copy``, ``pre_reroute`` and
+             ``mid_delta_replay`` in a split, ``pre_promote`` in a
+             failover) on ``scavenger`` and ``titan``, each fleet recovered
+             with ``ShardedStore.open(..., device="cuda")`` and held against
+             the latest-write oracle (the reference's
+             ``tests/test_elastic_fleet.py`` matrix);
+9. fleet   — the reference elasticity benchmark's fleet
+             (``benchmarks/elasticity.py``) on the card: Pareto-1K values,
+             a durable range fleet of 2 ``scavenger`` shards with one
+             replica each, auto-split at a 55% space or traffic share
+             (cooldown 2,048 ops, at most 4 shards), a 256 MiB dataset
+             (2^18 keys; the source's 100 GB cut to 512 MiB and halved for
+             the script's time limit) driven through
+             ``repro_torch.workloads.Runner`` in
+             batches of 4,096 under a static hotspot (90% of updates on an
+             eighth of the keys; ``repro_torch.workloads.elastic.hot_seed``
+             puts it in one shard): load, one update pass (the source's 3
+             cut to 1) with a checkpoint halfway (timed on its own), its
+             last 16 batches profiled for the device's idle share, a
+             second checkpoint, ``fail_primary`` on the shard with the
+             largest space share, then, in reads of 65,536 keys, 65,536
+             multi_get keys, 1,024 scans of 1 to 100 rows, every
+             acknowledged write read back, ``close`` and
+             ``ShardedStore.open(dir, device="cuda")`` (same shard count
+             and router), every write read back again.  It must migrate at
+             least once and end with more than 2 shards; the four probe
+             and fetch kernels' launch counts (primaries and replicas
+             together: the counts are process-wide), zeroed just before,
+             must each be > 0, and so must ``rank_probe``'s two forms'.
 
 ``python3 chip_smoke.py --crossover [--src DIR]`` runs phase 4 alone on a
 smaller store (2^18 keys), against the port under ``DIR/repro_torch``
@@ -274,6 +307,26 @@ def kernel_records(fn, only=None) -> dict:
 def device_busy_us(fn, only=None) -> float:
     """Device time (us) of what ``fn`` issues, from the profiler."""
     return sum(us for _, us in kernel_records(fn, only).values())
+
+
+def idle_window(what: str, fn) -> dict:
+    """The device's busy time and idle share over one call of ``fn`` (a
+    run's batches, ending in a wait for the card): the profiler's CUDA
+    records over a wall-clock window.  A window with no device time
+    recorded fails: its idle share would say nothing."""
+    import torch
+    wall = []
+
+    def window():
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    us = device_busy_us(window)
+    require(us > 0, f"{what}: the idle-share window recorded no device "
+                    f"time")
+    return {"device_busy_s": us / 1e6, "wall_s": wall[0],
+            "idle_share": 1 - us / 1e6 / wall[0]}
 
 
 # labels of the device times that no profiling session recorded, so that
@@ -1300,22 +1353,12 @@ def main_run(device, *, dataset_bytes=1 << 30, n_keys=1 << 20,
 
     busy = {}
     if cuda:
-        # device busy share of 16 update and 16 multi_get batches: the
-        # profiler's CUDA records over a wall-clock window
-        for name, fn in (
-                ("update",
-                 lambda: write_pass(rng.permutation(keys)[:16 * batch])),
-                ("multi_get", lambda: gets(16 * batch))):
-            wall = []
-
-            def window(fn=fn, wall=wall):
-                t0 = time.perf_counter()
-                fn()
-                sync()
-                wall.append(time.perf_counter() - t0)
-            us = device_busy_us(window)
-            busy[name] = {"device_busy_s": us / 1e6, "wall_s": wall[0],
-                          "idle_share": 1 - us / 1e6 / wall[0]}
+        # device busy share of 16 update and 16 multi_get batches
+        busy["update"] = idle_window(
+            "main update",
+            lambda: write_pass(rng.permutation(keys)[:16 * batch]))
+        busy["multi_get"] = idle_window("main multi_get",
+                                        lambda: gets(16 * batch))
     out = {"phases": phases, "launches": launches,
            "rank_probe_by_form": by_form,
            "host_table_probes": host_probes, "device_busy": busy,
@@ -1327,33 +1370,6 @@ def main_run(device, *, dataset_bytes=1 << 30, n_keys=1 << 20,
 
 
 # -------------------------------------------------------- 5. adaptive
-def zipf_sampler(n: int, theta: float, seed: int):
-    """YCSB scrambled-zipfian ranks over [0, n): the generator of the
-    reference's ``workloads.ZipfKeys`` (inverse CDF over the 10,000-rank
-    head, uniform tail, splitmix64 scramble), the ``skewed`` workload of
-    ``benchmarks/adaptive_gc.py``.  -> sample(rng, m) -> int64 ranks."""
-    import numpy as np
-    from repro_torch.core.engine.keys import splitmix64
-    head = min(n, 10_000)
-    w = np.arange(1, head + 1, dtype=np.float64) ** (-theta)
-    tail = ((n ** (1 - theta)) - (head ** (1 - theta))) / (1 - theta) \
-        if n > head else 0.0
-    cdf = np.cumsum(w) / (w.sum() + tail)
-    perm = np.uint64(seed * 2654435761 + 1)
-
-    def sample(rng, m):
-        u = rng.random(m)
-        is_head = u < cdf[-1]
-        out = np.empty(m, np.int64)
-        out[is_head] = np.searchsorted(cdf, u[is_head])
-        n_tail = int((~is_head).sum())
-        if n_tail:
-            out[~is_head] = rng.integers(head, n, n_tail)
-        scram = splitmix64(out.astype(np.uint64) ^ perm)
-        return (scram % np.uint64(n)).astype(np.int64)
-    return sample
-
-
 def adaptive_run(device, *, dataset_bytes=1 << 30, n_keys=1 << 20,
                  key_space=1 << 40, vsize=1024, batch=4096, theta=0.99,
                  crash_point="mid_compaction", seed=3,
@@ -1365,6 +1381,7 @@ def adaptive_run(device, *, dataset_bytes=1 << 30, n_keys=1 << 20,
     from repro_torch import kernels
     from repro_torch.core import CrashPoint, EngineConfig, Store, WriteBatch
     from repro_torch.core.engine import io as sio
+    from repro_torch.workloads import ZipfKeys
     cuda = torch.device(device).type == "cuda"
 
     def sync():
@@ -1376,9 +1393,9 @@ def adaptive_run(device, *, dataset_bytes=1 << 30, n_keys=1 << 20,
                                   dtype=np.uint64))
     require(len(keys) >= n_keys, "key draw too small")
     keys = rng.permutation(keys[:n_keys])
-    zipf = zipf_sampler(n_keys, theta, seed)
+    zipf = ZipfKeys(n_keys, theta, seed)
     n_batches = n_keys // batch
-    update = [keys[zipf(rng, batch)] for _ in range(n_batches)]
+    update = [keys[zipf.sample(rng, batch)] for _ in range(n_batches)]
     ckpt_at, crash_at = n_batches // 2, n_batches * 3 // 4
     cfg = EngineConfig.scaled("scavenger_adaptive", dataset_bytes,
                               est_keys=n_keys)
@@ -1480,19 +1497,9 @@ def adaptive_run(device, *, dataset_bytes=1 << 30, n_keys=1 << 20,
     wb = store.io.write_bytes
     busy = {}
     if cuda:
-        # device busy share of 16 more update batches: the profiler's CUDA
-        # records over a wall-clock window
-        wall = []
-
-        def window():
-            t0 = time.perf_counter()
-            for ks in update[:16]:
-                put(store, ks)
-            sync()
-            wall.append(time.perf_counter() - t0)
-        us = device_busy_us(window)
-        busy["update"] = {"device_busy_s": us / 1e6, "wall_s": wall[0],
-                          "idle_share": 1 - us / 1e6 / wall[0]}
+        # device busy share of 16 more update batches
+        busy["update"] = idle_window(
+            "adaptive update", lambda: [put(store, ks) for ks in update[:16]])
     store.close()
     tmp.cleanup()
     out = {"phases": phases, "launches": launches,
@@ -1507,6 +1514,217 @@ def adaptive_run(device, *, dataset_bytes=1 << 30, n_keys=1 << 20,
     log("[adaptive] " + json.dumps(out))
     return out
 
+
+
+# ----------------------------------------------------------- 9. fleet
+FLEET_SHARDS = 2        # the reference elasticity benchmark's fleet
+FLEET_SPLIT_FRAC = 0.55
+FLEET_COOLDOWN_OPS = 2048
+FLEET_MAX_SHARDS = 4
+FLEET_HOT_FRAC = 0.9
+
+
+def _fleet_metrics(fleet) -> dict:
+    st = fleet.stats()
+    return {"n_shards": st["n_shards"], "n_migrations": st["n_migrations"],
+            "fence_ms": sum(m["fence_us"] for m in fleet.migrations) / 1e3,
+            "migrated_mb": fleet.migrated_bytes() / 2**20,
+            "space_amp": st["space_amp"], "write_amp": st["write_amp"],
+            "n_gc_runs": st["n_gc_runs"]}
+
+
+# the source's 100 GB cut to 512 MiB, then halved: at 512 MiB the phase
+# took 391 s on one H100 (PERF.md §4), which with the earlier phases'
+# 595-747 s would pass 1,000 s of the script's 1,200
+FLEET_DATASET = 256 << 20
+
+
+def fleet_run(device, *, dataset_bytes=FLEET_DATASET, batch=4096,
+              read_batch=1 << 16, n_gets=1 << 16, n_scans=1024,
+              seed=0) -> dict:
+    """Drive a durable, replicated, elastic range fleet of scavenger shards
+    through the port's ``Runner`` under a static hotspot: load, one update
+    pass with a checkpoint halfway, a failover, reads, scans, a close and
+    a recovery; check every acknowledged write before the close and after
+    the recovery; -> phase metrics.  Writes go in batches of ``batch``,
+    reads in batches of ``read_batch``."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import EngineConfig, ShardedStore
+    from repro_torch.workloads import HotspotKeys, Runner, pareto_1k
+    from repro_torch.workloads.elastic import hot_seed
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    spec = pareto_1k(dataset_bytes, update_factor=1.0, seed=seed)
+    n_keys = spec.n_keys
+    cfg = EngineConfig.scaled(
+        "scavenger", dataset_bytes // FLEET_SHARDS,
+        est_keys=max(64, n_keys // FLEET_SHARDS),
+        elastic_split_frac=FLEET_SPLIT_FRAC,
+        elastic_cooldown_ops=FLEET_COOLDOWN_OPS,
+        elastic_max_shards=FLEET_MAX_SHARDS, replica_count=1)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_")
+    root = Path(tmp.name) / "fleet"
+    fleet = ShardedStore(cfg, n_shards=FLEET_SHARDS, shard_policy="range",
+                         key_space=n_keys, durability_dir=root,
+                         device=device)
+    # static hotspot (shift_every past the op count): 90% of updates hit
+    # one contiguous eighth of the keyspace, inside one shard's slice
+    hot = HotspotKeys(n_keys, hot_n=max(1, n_keys // 8),
+                      hot_frac=FLEET_HOT_FRAC, shift_every=1 << 30,
+                      seed=hot_seed(n_keys, FLEET_SHARDS))
+    runner = Runner(fleet, spec, batch=batch, key_gen=hot)
+    oracle = runner.oracle           # key -> the vid its write returned
+
+    def counts() -> dict:
+        c = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+        c["rank_probe_segments"] = kernels.rank_probe_segments.launches
+        return c
+
+    steps = {}
+    live = [fleet]                   # the fleet the steps drive
+
+    def timed(name, n_ops, fn):
+        """Run ``fn``; record host time, launches and the live fleet's
+        metrics."""
+        sync()
+        c0 = counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        dt = time.perf_counter() - t0
+        c1 = counts()
+        steps[name] = {"ops": n_ops, "host_s": dt,
+                       "host_ops_s": n_ops / dt if n_ops else None,
+                       "launches": {k: c1[k] - c0[k] for k in c1
+                                    if c1[k] != c0[k]},
+                       **_fleet_metrics(live[0])}
+        log(f"[fleet] {name}: {n_ops} ops in {dt:.2f}s host, "
+            f"{steps[name]['n_shards']} shards, "
+            f"{steps[name]['n_migrations']} migrations")
+        return out
+
+    def readback(f):
+        ks_all = np.fromiter(oracle, np.uint64, count=len(oracle))
+        for i in range(0, len(ks_all), read_batch):
+            ks = ks_all[i:i + read_batch]
+            res = f.multi_get(ks)
+            want = np.fromiter((oracle[k] for k in ks.tolist()), np.uint64,
+                               count=len(ks))
+            require(bool(res["found"].all()), "acknowledged key not found")
+            require(bool((res["vid"] == want).all()),
+                    "multi_get returned a stale or wrong vid")
+        return len(ks_all)
+
+    def gets():
+        ks_all = rng.integers(0, n_keys, n_gets).astype(np.uint64)
+        for i in range(0, n_gets, read_batch):
+            ks = ks_all[i:i + read_batch]
+            res = fleet.multi_get(ks)
+            want = np.fromiter((oracle.get(k, 0) for k in ks.tolist()),
+                               np.uint64, count=len(ks))
+            require(bool((res["vid"] == want).all()),
+                    "fleet multi_get returned a stale or wrong vid")
+
+    def scans():
+        sorted_keys = np.fromiter(sorted(oracle), np.uint64,
+                                  count=len(oracle))
+        starts = rng.integers(0, n_keys, n_scans).astype(np.int64)
+        lens = rng.integers(1, 101, n_scans)
+        for i in range(0, n_scans, read_batch):
+            st, ln = starts[i:i + read_batch], lens[i:i + read_batch]
+            for s, n, row in zip(st.tolist(), ln.tolist(),
+                                 fleet.multi_scan(st, ln)):
+                a = int(np.searchsorted(sorted_keys, np.uint64(s)))
+                want = sorted_keys[a:a + n].tolist()
+                require([k for k, _ in row] == want,
+                        f"fleet scan from {s} returned the wrong keys")
+                require(all(v == oracle[k] for k, v in row),
+                        f"fleet scan from {s} returned a wrong vid")
+
+    n_window = 16 * batch            # the pass's last 16 batches
+    half = n_keys // 2
+    busy = {}
+
+    def update_window():
+        """The pass's last 16 batches; on the card, the device busy share
+        over them, as the main run measures it."""
+        ks = hot.sample(runner.rng, n_window)
+        sizes = spec.value_dist.sample(runner.rng, n_window)
+        if not cuda:
+            runner.apply_puts(ks, sizes)
+            return
+        busy["update"] = idle_window(
+            "fleet update", lambda: runner.apply_puts(ks, sizes))
+
+    def settle():
+        # a split begun after a checkpoint is re-derived by recovery from
+        # a traffic window the checkpoint does not hold (the reference's
+        # ElasticityManager keeps it in memory), so it may land on another
+        # shard: settle the topology in a second checkpoint before the
+        # reads
+        fleet.settle()
+        fleet.checkpoint()
+
+    rng = np.random.default_rng(seed + 1)
+    for fn in kernels.KERNELS + (kernels.rank_probe_segments,):
+        fn.launches = 0
+    timed("load", n_keys, runner.load)
+    timed("update", half, lambda: runner.update(half))
+    timed("checkpoint_halfway", 0, fleet.checkpoint)
+    timed("update_rest", n_keys - half - n_window,
+          lambda: runner.update(n_keys - half - n_window))
+    timed("update_window", n_window, update_window)
+    timed("settle_checkpoint", 0, settle)
+    space = [s.version.total_bytes() for s in fleet.shards]
+    failed = int(np.argmax(space))
+    promoted = timed("fail_primary", 0, lambda: fleet.fail_primary(failed))
+    require(promoted is fleet.shards[failed]
+            and promoted.device.type == torch.device(device).type,
+            "the promoted replica is not the shard's primary on the device")
+    timed("multi_get", n_gets, gets)
+    timed("multi_scan", n_scans, scans)
+    timed("readback", len(oracle), lambda: readback(fleet))
+    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    by_form = {"run": launches["rank_probe"]
+               - kernels.rank_probe_segments.launches,
+               "segments": kernels.rank_probe_segments.launches}
+    st = fleet.stats()
+    n_shards, router = len(fleet.shards), fleet.router.state_dict()
+    migrations = list(fleet.migrations)
+    timed("close", 0, fleet.close)
+
+    def reopen():
+        live[0] = ShardedStore.open(root, device=device)
+        return live[0]
+    rec = timed("open", 0, reopen)
+    require(all(s.device.type == torch.device(device).type
+                for s in rec.shards), "a recovered shard is off the device")
+    require(len(rec.shards) == n_shards,
+            f"recovered fleet has {len(rec.shards)} shards, not {n_shards}")
+    require(rec.router.state_dict() == router,
+            "recovered router differs from the one before the close")
+    timed("readback_after_open", len(oracle), lambda: readback(rec))
+    rec.close()
+    tmp.cleanup()
+    out = {"steps": steps, "launches": launches,
+           "rank_probe_by_form": by_form, "device_busy": busy,
+           "n_keys": n_keys, "dataset_bytes": dataset_bytes,
+           "failed_shard": failed,
+           "migrations": [{k: m[k] for k in ("kind", "src", "dst", "records",
+                                             "bytes", "fence_us")}
+                          for m in migrations],
+           "n_shards": n_shards, "n_migrations": st["n_migrations"],
+           "space_amp": st["space_amp"], "write_amp": st["write_amp"],
+           "n_gc_runs": st["n_gc_runs"], "sim_clock_s": st["clock_s"],
+           "launches_cover": "primaries and replicas (process-wide counts)"}
+    log("[fleet] " + json.dumps(out))
+    return out
 
 # ---------------------------------------------------------- 6. shapes
 def _bound(nbytes: float, nops: float):
@@ -1780,15 +1998,17 @@ def _shape(a):
 
 
 # ---------------------------------------------------------- 7. parity
-def fixed_workload(engine: str, device, **overrides):
+def fixed_workload(engine: str, device, fleet=None, **overrides):
     """The reference parity test's op stream (tests/test_refactor_parity.py
-    ``run_fixed_workload``) -> (stats, multi_get vids, scan rows)."""
+    ``run_fixed_workload``) -> (stats, multi_get vids, scan rows); through
+    a ``ShardedStore`` made with the ``fleet`` arguments, if given."""
     import numpy as np
-    from repro_torch.core import EngineConfig, Store, WriteBatch
+    from repro_torch.core import EngineConfig, ShardedStore, Store, WriteBatch
     n_keys = 4096
     vsizes = np.array([64, 200, 600, 2000, 9000], np.int64)
     cfg = EngineConfig.scaled(engine, 8 << 20, est_keys=n_keys, **overrides)
-    store = Store(cfg, device=device)
+    store = Store(cfg, device=device) if fleet is None else \
+        ShardedStore(cfg, device=device, **fleet)
     rng = np.random.default_rng(1234)
     vids, rows = [], []
     for _ in range(6):
@@ -1822,6 +2042,46 @@ def parity_phase(device="cuda") -> None:
             require(on[1] == off[1], f"{what}: multi_get vids differ")
             require(on[2] == off[2], f"{what}: scan rows differ")
         log(f"[parity] {engine} {base}: equal "
+            f"({time.perf_counter() - t0:.1f}s)")
+    fleet_parity(device)
+
+
+FLEET_ENGINES = ("scavenger", "titan")
+
+
+def fleet_parity(device="cuda") -> None:
+    """A 1-shard fleet against the port's ``Store`` on the card (equal
+    stats on every field they share, vids and scan rows), and 3-shard
+    ``range`` and ``hash`` fleets under the ``fleet`` and ``round_robin``
+    schedulers on the card with kernels on (at the default threshold and
+    with every probe routed) against the same fleets on the CPU with
+    kernels off (stats, every multi_get vid and every scan row)."""
+    for engine in FLEET_ENGINES:
+        t0 = time.perf_counter()
+        one = fixed_workload(engine, device, fleet={"n_shards": 1})
+        store = fixed_workload(engine, device)
+        shared = set(one[0]) & set(store[0])
+        require({k: one[0][k] for k in shared}
+                == {k: store[0][k] for k in shared},
+                f"{engine}: a 1-shard fleet's stats differ from Store's")
+        require(one[1:] == store[1:],
+                f"{engine}: a 1-shard fleet's reads differ from Store's")
+        n = 1
+        for policy in ("range", "hash"):
+            for scheduler in ("fleet", "round_robin"):
+                fleet = {"n_shards": 3, "shard_policy": policy,
+                         "key_space": 4096, "scheduler": scheduler}
+                off = fixed_workload(engine, "cpu", fleet=fleet,
+                                     use_kernels=False)
+                for kw in ({}, {"kernel_min_batch": 1}):
+                    on = fixed_workload(engine, device, fleet=fleet, **kw)
+                    what = f"{engine} fleet {policy}/{scheduler} {kw}"
+                    require(on[0] == off[0], f"{what}: stats differ: "
+                                             f"{on[0]} vs {off[0]}")
+                    require(on[1] == off[1], f"{what}: multi_get vids differ")
+                    require(on[2] == off[2], f"{what}: scan rows differ")
+                    n += 1
+        log(f"[parity] {engine} fleets: {n} cases equal "
             f"({time.perf_counter() - t0:.1f}s)")
 
 
@@ -1905,6 +2165,66 @@ def crash_phase(device="cuda") -> int:
                 n += 1
     log(f"[crash] {n} (engine, crash point) cases recovered on the card "
         f"equal to the uninterrupted CPU run "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return n + fleet_crash(device)
+
+
+def fleet_crash(device="cuda") -> int:
+    """The four fleet crash points on ``scavenger`` and ``titan``: a split
+    crashed at each migration point, and a failover at ``pre_promote``,
+    each fleet recovered with ``ShardedStore.open(..., device=...)`` and
+    held against the latest-write oracle, then driven on (a failover on
+    the re-seeded replicas).  -> the number of cases."""
+    import numpy as np
+    import torch
+    from repro_torch.core import CrashPoint, EngineConfig, ShardedStore
+    from repro_torch.core.durability import CRASH_POINTS
+    from repro_torch.workloads.elastic import (FLEET_KEY_SPACE, TINY_FLEET,
+                                               fleet_rounds, oracle_mismatch)
+
+    def holds(fleet, oracle, what):
+        bad = oracle_mismatch(fleet, oracle)
+        require(bad is None, f"{what}: {bad}")
+    n = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_crash_") as tmp:
+        for engine in FLEET_ENGINES:
+            for point in CRASH_POINTS[5:]:
+                what = f"fleet crash {engine}/{point}"
+                promote = point == "pre_promote"
+                extra = {"replica_count": 1, "replica_lag_ops": 4} \
+                    if promote else {}
+                cfg = EngineConfig(engine=engine, **TINY_FLEET, **extra)
+                root = Path(tmp) / f"{engine}-{point}"
+                rng = np.random.default_rng(17 if promote else 11)
+                oracle: dict = {}
+                fleet = ShardedStore(cfg, n_shards=2,
+                                     key_space=FLEET_KEY_SPACE,
+                                     durability_dir=root, device=device)
+                fleet_rounds(fleet, oracle, rng, 4)
+                fleet.checkpoint()
+                fleet_rounds(fleet, oracle, rng, 2 if promote else 3)
+                fleet.arm_crash(point)
+                try:
+                    fleet.fail_primary(0) if promote else fleet.split_shard(0)
+                except CrashPoint:
+                    pass
+                else:
+                    raise SmokeFailure(f"{what}: the crash point never fired")
+                fleet.close()
+                rec = ShardedStore.open(root, device=device)
+                require(all(s.device.type == torch.device(device).type
+                            for s in rec.shards),
+                        f"{what}: a recovered shard is off the device")
+                holds(rec, oracle, what)
+                fleet_rounds(rec, oracle, rng, 2)
+                if promote:
+                    rec.fail_primary(0)
+                holds(rec, oracle, what + " (driven on)")
+                rec.close()
+                n += 1
+    log(f"[crash] {n} fleet (engine, crash point) cases recovered on the "
+        f"card to the latest-write oracle "
         f"({time.perf_counter() - t0:.1f}s)")
     return n
 
@@ -2539,12 +2859,14 @@ def _observe_times(device="cuda", n_batches=64) -> dict:
     import torch
     from repro_torch.core import EngineConfig
     from repro_torch.core.adaptive.tracker import AccessTracker
+    from repro_torch.workloads import ZipfKeys
     cfg = EngineConfig.scaled("scavenger_adaptive", 1 << 30,
                               est_keys=1 << 20)
     tr = AccessTracker.from_config(cfg, device)
     rng = np.random.default_rng(29)
-    zipf = zipf_sampler(1 << 20, 0.99, 29)
-    batches = [zipf(rng, 4096).astype(np.uint64) for _ in range(n_batches)]
+    zipf = ZipfKeys(1 << 20, 0.99, 29)
+    batches = [zipf.sample(rng, 4096).astype(np.uint64)
+               for _ in range(n_batches)]
 
     def loop():
         t0 = time.perf_counter()
@@ -3083,6 +3405,17 @@ def main(argv) -> int:
     parity_phase()
     mark("parity")
     crash_phase()
+    mark("crash")
+    fleet = fleet_run("cuda")
+    require(fleet["n_migrations"] >= 1, "the fleet never migrated a range")
+    require(fleet["n_shards"] > FLEET_SHARDS, "the fleet never split")
+    for name in MAIN_KERNELS:
+        require(fleet["launches"][name] > 0,
+                f"kernel {name} was not launched in the fleet run")
+    for form, n in fleet["rank_probe_by_form"].items():
+        require(n > 0, f"rank_probe's {form} form was not launched in the "
+                       f"fleet run")
+    mark("fleet")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"other_forms": forms}))
     print(json.dumps({"kernels": recs}))

@@ -8,6 +8,8 @@ the reference package; the batched probes, fetch planning and the
 adaptive tracker's sketch updates run as CUDA kernels on the store's
 device (``core/accel.py``, ``core/adaptive/``).  Durable stores
 (``durability/``) write the reference package's on-disk format.
+``ShardedStore`` (``sharding/``) runs many stores as one elastic,
+replicated fleet.
 """
 
 from .batch import WriteBatch
@@ -16,8 +18,10 @@ from .engine.config import EngineConfig, ENGINES
 from .engines import (EngineStrategy, available_engines, make_strategy,
                       register_engine)
 from .oracle import LatestOracle
+from .sharding import FleetScheduler, ShardedStore
 from .store import Store
 
 __all__ = ["CrashPoint", "Durability", "EngineConfig", "ENGINES",
-           "EngineStrategy", "LatestOracle", "Store", "WriteBatch",
-           "available_engines", "make_strategy", "register_engine"]
+           "EngineStrategy", "FleetScheduler", "LatestOracle",
+           "ShardedStore", "Store", "WriteBatch", "available_engines",
+           "make_strategy", "register_engine"]

@@ -28,8 +28,8 @@ recovers in the other.
 ``CrashPoint`` + ``Store.arm_crash`` provide the crash-injection hooks the
 matrix uses (kill between WAL append and memtable insert, mid-flush,
 mid-compaction, mid-GC before/after the chain update).  The four fleet
-points of ``CRASH_POINTS`` fire in a sharded store, which this package
-does not have yet.
+points of ``CRASH_POINTS`` fire in a ``ShardedStore``
+(``ShardedStore.arm_crash``).
 """
 
 from __future__ import annotations
@@ -44,12 +44,13 @@ from . import snapshot
 
 __all__ = ["CrashPoint", "Durability", "EDIT_KINDS", "ManifestWriter",
            "VersionEdit", "WalWriter", "append_record", "pack_array",
-           "read_record", "read_manifest", "read_wal", "recover_store",
-           "replay_into", "scan_records", "snapshot", "unpack_array"]
+           "manifest_summary", "read_record", "read_manifest", "read_wal",
+           "recover_store", "replay_into", "scan_records", "snapshot",
+           "unpack_array"]
 
 # Crash-injection points instrumented in the core (Store._crashpoint);
-# the last four fire in the reference's elastic-fleet migration/failover
-# machinery (ShardedStore._crashpoint, DESIGN.md §14), not ported yet.
+# the last four fire in the elastic-fleet migration/failover machinery
+# (ShardedStore._crashpoint, DESIGN.md §14).
 CRASH_POINTS = ("after_wal", "mid_flush", "mid_compaction",
                 "gc_pre_chain", "gc_post_chain",
                 "mid_migration_copy", "pre_reroute", "mid_delta_replay",
@@ -224,3 +225,15 @@ def recover_store(path: Path | str, io=None, cls=None, *, device=None):
     obs.instant(store, "recovery_end", wal_index=int(store.wal_index))
     store.durability = Durability.attach(root)
     return store
+
+
+def manifest_summary(path: Path | str) -> dict:
+    """Edit-kind histogram + watermarks of a MANIFEST (debug/audit aid)."""
+    edits = read_manifest(Path(path))
+    kinds: dict[str, int] = {}
+    last_seq = None
+    for e in edits:
+        kinds[e.kind] = kinds.get(e.kind, 0) + 1
+        if "seq" in e.data:
+            last_seq = e.data["seq"]
+    return {"n_edits": len(edits), "kinds": kinds, "last_seq": last_seq}

@@ -8,8 +8,9 @@ apples-to-apples.  The store's ``device`` (CUDA unless the caller names
 another) holds the immutable key columns the batched probes run on
 (``core/accel.py``) and runs the adaptive tracker's routed batches.
 Durability (``durability_dir``, ``checkpoint``, ``Store.open``) writes the
-reference's on-disk format.  Sharding and recording observers are not
-ported yet.
+reference's on-disk format.  A ``ShardedStore`` (``core/sharding/``) runs
+many of these as shards under one fleet scheduler.  Recording observers
+are not ported yet.
 
 The facade owns scheduling and the write path; everything else is layered
 (DESIGN.md §7):
@@ -87,6 +88,10 @@ class Store(ScalarOps):
         self.in_batch_write = False
         self.compact_cursor: dict[int, int] = {}
         self._last_bg = "gc"
+        # When this store is a shard of a ShardedStore, the fleet scheduler
+        # owns background scheduling: pump() delegates to it so GC/compaction
+        # service is ranked across the whole fleet, not per shard.
+        self.scheduler = None
         # Durability (DESIGN.md §9): off by default — None costs one
         # attribute check per event and zero simulated device time.
         self.durability = None
@@ -384,6 +389,9 @@ class Store(ScalarOps):
 
     def pump(self) -> None:
         """Run background jobs that fit before the foreground clock."""
+        if self.scheduler is not None:
+            self.scheduler.pump()
+            return
         while self.io.bg_clock_us < self.io.fg_clock_us:
             job = self.next_compact_job()
             if job is None:
@@ -496,7 +504,7 @@ class Store(ScalarOps):
     def arm_crash(self, point: str, hits: int = 1) -> None:
         """Crash-injection: raise ``CrashPoint`` at the ``hits``-th pass
         through the named hook (see ``durability.CRASH_POINTS``; the four
-        fleet points fire only in a sharded store, not ported yet)."""
+        fleet points fire only in a ``ShardedStore``)."""
         from .durability import CRASH_POINTS
         if point not in CRASH_POINTS:
             raise ValueError(f"unknown crash point {point!r} "

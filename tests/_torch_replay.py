@@ -5,8 +5,8 @@ its file under a new module name, with every ``repro.X`` import it makes
 bound to the same name in ``repro_torch.X``.  The redirect sits in the
 fresh module's own ``__import__``, so it covers the imports inside test
 bodies too; the reference's modules themselves stay untouched and keep
-testing ``repro``.  ``Store`` binds to a subclass of the port's ``Store``
-that runs on the CPU (the port's default device is CUDA), and
+testing ``repro``.  ``Store`` and ``ShardedStore`` bind to subclasses of
+the port's that run on the CPU (the port's default device is CUDA), and
 ``AccessTracker`` to one whose trackers route on the CPU.  A sibling test
 module a suite imports helpers from (``HELPERS``) is loaded the same way,
 so its helpers drive the port too.  A module the port does not have yet
@@ -15,7 +15,9 @@ binds the reference's; a name the port's module lacks binds ``None``.
 ``expose`` puts each test function of the loaded suites into a test
 module's namespace as ``test_<suite>__<name>``, with its parametrisation
 and hypothesis decorators, so each case runs once, against the port;
-``assert_binds_port`` checks what a suite took from ``repro``.
+``assert_binds_port`` checks what a suite took from ``repro``: the
+port's, but for names of a module the port does not have, which a test
+module exempts by name together with the cases it leaves out.
 """
 
 from __future__ import annotations
@@ -47,6 +49,20 @@ class CpuStore(T.Store):
         return super().open(path, *args, **kwargs)
 
 
+class CpuShardedStore(T.ShardedStore):
+    """The port's ``ShardedStore`` on the CPU: every shard, replica and
+    recovered shard it makes runs there."""
+
+    def __init__(self, cfg, *args, **kwargs):
+        kwargs.setdefault("device", "cpu")
+        super().__init__(cfg, *args, **kwargs)
+
+    @classmethod
+    def open(cls, path, *args, **kwargs):
+        kwargs.setdefault("device", "cpu")
+        return super().open(path, *args, **kwargs)
+
+
 class CpuAccessTracker(TA.AccessTracker):
     """The port's ``AccessTracker`` routing on the CPU (kernels on: its
     sketches' counters are CPU tensors, its kernels the plain versions)."""
@@ -62,7 +78,8 @@ class CpuAccessTracker(TA.AccessTracker):
         return super().from_config(cfg, device)
 
 
-BOUND = {"Store": CpuStore, "AccessTracker": CpuAccessTracker}
+BOUND = {"Store": CpuStore, "ShardedStore": CpuShardedStore,
+         "AccessTracker": CpuAccessTracker}
 HELPER_MODULES: dict[str, types.ModuleType] = {}
 
 
@@ -125,17 +142,22 @@ def expose(namespace: dict, modules: dict, left_out: dict) -> None:
                 namespace[f"test_{suite[len('test_'):]}__{name}"] = fn
 
 
-def assert_binds_port(modules: dict) -> None:
+def assert_binds_port(modules: dict, exempt: dict | None = None) -> None:
     """Every class, function and module the ``modules`` took from
-    ``repro`` is the port's (``repro.workloads`` aside), ``Store`` is the
-    CPU store and ``AccessTracker`` the CPU tracker."""
+    ``repro`` is the port's, ``Store`` and ``ShardedStore`` are the CPU
+    stores and ``AccessTracker`` the CPU tracker.  The names ``exempt``
+    gives ({suite: names}) are exactly those the reference still provides,
+    because the port has no module for them."""
+    exempt = exempt or {}
     for suite, module in modules.items():
         for name, value in BOUND.items():
             assert getattr(module, name, value) is value
+        reference = set()
         for name, value in vars(module).items():
             origin = getattr(value, "__module__", None) or \
                 (value.__name__ if isinstance(value, types.ModuleType)
                  else "")
-            if origin.startswith("repro.") and \
-                    not origin.startswith("repro.workloads"):
-                raise AssertionError(f"{suite}.{name} is {origin}'s")
+            if origin.startswith("repro."):
+                reference.add(name)
+        assert reference == set(exempt.get(suite, ())), \
+            f"{suite} takes {sorted(reference)} from the reference"

@@ -2,8 +2,8 @@
 
 * The port imports neither JAX nor anything of the reference package:
   checked on the source (AST) and on a live import in a fresh interpreter.
-* ``Store`` and the kernel benchmark run on CUDA unless told otherwise,
-  and raise without it.
+* ``Store``, ``ShardedStore`` and the kernel benchmark run on CUDA unless
+  told otherwise, and raise without it.
 * A kernel wrapper given CUDA tensors launches its kernel or raises; it
   never runs the plain version.  No card here, so the tensors only report
   a CUDA device and the launch is mocked.
@@ -77,7 +77,9 @@ def test_cuda_sources_include_no_cub_or_thrust():
 def test_port_import_and_run_load_no_jax_or_reference():
     """Import every port module and chip_smoke, drive a small durable
     adaptive store with kernels on through a checkpoint and a recovery,
-    and list the modules a fresh interpreter then holds."""
+    and a small durable, replicated, elastic fleet through the port's
+    workload generators, a failover and a recovery, and list the modules
+    a fresh interpreter then holds."""
     code = r"""
 import importlib, json, pkgutil, sys, tempfile
 import numpy as np
@@ -99,6 +101,25 @@ with tempfile.TemporaryDirectory() as d:
     r = Store.open(d, device="cpu")
     r.multi_get(keys)
     r.close()
+from repro_torch.core import ShardedStore
+from repro_torch.workloads import HotspotKeys, Runner, pareto_1k, run_ycsb
+with tempfile.TemporaryDirectory() as d:
+    spec = pareto_1k(1 << 20, update_factor=0.5)
+    f = ShardedStore(EngineConfig.scaled("scavenger", 1 << 19,
+                                         replica_count=1,
+                                         elastic_split_frac=0.55,
+                                         elastic_cooldown_ops=256),
+                     n_shards=2, key_space=spec.n_keys, durability_dir=d,
+                     device="cpu")
+    r = Runner(f, spec, batch=256,
+               key_gen=HotspotKeys(spec.n_keys, hot_n=64))
+    r.load()
+    f.checkpoint()
+    r.update()
+    run_ycsb(f, spec, "A", 256, runner=r)
+    f.fail_primary(0)
+    f.close()
+    ShardedStore.open(d, device="cpu").multi_get(keys)
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
 """
@@ -383,6 +404,41 @@ def test_durability_works_and_recording_observers_raise(tmp_path):
                                       observer=object()), device="cpu")
     with pytest.raises(NotImplementedError, match="observer"):
         T.Store.open(tmp_path / "d", observer=object(), device="cpu")
+
+
+def test_sharded_store_defaults_to_cuda_and_raises_without_it(
+        monkeypatch, tmp_path):
+    """``ShardedStore(cfg)`` and ``ShardedStore.open(d)`` run on CUDA
+    unless told otherwise, and raise without it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = T.EngineConfig.scaled("scavenger", 1 << 20, replica_count=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.ShardedStore(cfg, n_shards=2, key_space=1024)
+    fleet = T.ShardedStore(cfg, n_shards=2, key_space=1024,
+                           durability_dir=tmp_path, device="cpu")
+    fleet.write(T.WriteBatch().puts(np.arange(64, dtype=np.uint64),
+                                    np.full(64, 1024, np.int64)))
+    fleet.close()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.ShardedStore.open(tmp_path)
+    rec = T.ShardedStore.open(tmp_path, device="cpu")
+    assert rec.device == torch.device("cpu")
+    assert all(s.device == torch.device("cpu") for s in rec.shards)
+
+
+def test_fleet_recording_observers_raise(tmp_path):
+    """A fleet refuses a recording observer, in its configuration (its
+    shards' ``Store`` refuses it) and on the recovery path."""
+    with pytest.raises(NotImplementedError, match="observer"):
+        T.ShardedStore(T.EngineConfig.scaled("scavenger", 1 << 20,
+                                             observer=object()),
+                       n_shards=2, key_space=1024, device="cpu")
+    T.ShardedStore(T.EngineConfig.scaled("scavenger", 1 << 20), n_shards=2,
+                   key_space=1024, durability_dir=tmp_path,
+                   device="cpu").close()
+    with pytest.raises(NotImplementedError,
+                       match="recording observers are not ported yet"):
+        T.ShardedStore.open(tmp_path, observer=object(), device="cpu")
 
 
 def test_open_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):

@@ -438,6 +438,43 @@ def test_store_on_card_matches_cpu(cuda, engine):
     assert run(cuda, kernel_min_batch=1) == run("cpu", use_kernels=False)
 
 
+@pytest.mark.parametrize("policy", ["range", "hash"])
+def test_fleet_on_card_matches_cpu(cuda, policy):
+    """A small replicated, elastic 3-shard fleet on the card (every probe
+    routed) against the same fleet on the CPU with kernels off: stats,
+    reads, scans, migrations, and the replica ``fail_primary`` promotes."""
+    from repro_torch.core import ShardedStore
+
+    def run(device, **kw):
+        cfg = EngineConfig.scaled("scavenger", 4 << 20, est_keys=1024,
+                                  replica_count=1, elastic_split_frac=0.5,
+                                  elastic_cooldown_ops=512,
+                                  migration_chunk_records=128, **kw)
+        fleet = ShardedStore(cfg, n_shards=3, shard_policy=policy,
+                             key_space=4096, device=device)
+        rng = np.random.default_rng(3)
+        vids, rows = [], []
+        for i in range(8):
+            if i == 4 and not fleet.migrations:   # hash: no hot shard
+                assert fleet.split_shard(0) is not None
+            keys = rng.integers(0, 1024, 512).astype(np.uint64)
+            fleet.write(WriteBatch().puts(keys, rng.choice(
+                [64, 600, 2000, 9000], 512).astype(np.int64)))
+            vids.append(fleet.multi_get(keys[::2])["vid"].tolist())
+            rows.append(fleet.multi_scan(
+                rng.integers(0, 4096, 8).astype(np.int64), 20))
+        promoted = fleet.fail_primary(0)
+        assert promoted.device.type == torch.device(device).type
+        fleet.drain()
+        vids.append(fleet.multi_get(np.arange(4096, dtype=np.uint64))
+                    ["vid"].tolist())
+        return (fleet.stats(), promoted.stats(), fleet.migrations, vids,
+                rows)
+    card = run(cuda, kernel_min_batch=1)
+    assert card[0]["n_migrations"] >= 1
+    assert card == run("cpu", use_kernels=False)
+
+
 def _u32(a, device):
     from repro_torch.kernels.common import u32_tensor
     return u32_tensor(np.asarray(a), device)

@@ -1,8 +1,9 @@
 """The reference's store suites, replayed on the port on the CPU.
 
-Six test modules of the reference package (``test_batch_api``,
+Seven test modules of the reference package (``test_batch_api``,
 ``test_engine_units``, ``test_engines_registry``, ``test_store_property``,
-``test_kernel_route`` and ``test_adaptive``) are loaded afresh from their
+``test_kernel_route``, ``test_adaptive`` and ``test_data_and_workloads``)
+are loaded afresh from their
 files under new module names (``tests/_torch_replay.py``), with every
 ``repro.X`` import they make bound to the same name in ``repro_torch.X``.
 The redirect sits in the fresh module's own ``__import__``, so it covers
@@ -11,10 +12,11 @@ testing ``repro``.  ``Store`` binds to a subclass of the port's ``Store``
 that runs on the CPU (the port's default device is CUDA), and
 ``AccessTracker`` to one whose trackers route on the CPU.  A sibling test
 module a suite imports helpers from (``test_refactor_parity``'s fixed
-workload) is loaded the same way, so its helpers drive the port too.  A
-module the port does not have yet binds the reference's
-(``repro.workloads``, whose ``Runner`` only drives the store under test
-through its public calls); a name the port's module lacks binds ``None``.
+workload) is loaded the same way, so its helpers drive the port too.  The
+workload generators bind the port's ``repro_torch.workloads``.  A module
+the port does not have yet binds the reference's (``repro.data``, whose
+names are exempt from the binding check with the cases that use them); a
+name the port's module lacks binds ``None``.
 
 Each test function is exposed here as ``test_<suite>__<name>`` with its
 parametrisation and hypothesis decorators, so each case runs once, against
@@ -23,6 +25,9 @@ the port.  Left out, because they need what the port does not have yet:
 * ``test_kernel_route.py::test_kernel_us_histograms_reach_observer``:
   the recording observer (``repro.obs.Observer``) is not ported yet
   (ROADMAP §1 item 3).
+* the three pipeline cases of ``test_data_and_workloads.py``
+  (``test_pipeline_*``): the token pipeline, ``repro.data``, is not ported
+  yet (ROADMAP §1 item 5).  Its four workload cases run.
 """
 
 from __future__ import annotations
@@ -32,11 +37,18 @@ import importlib
 from _torch_replay import HELPER_MODULES, assert_binds_port, expose, load
 
 SUITES = ("test_batch_api", "test_engine_units", "test_engines_registry",
-          "test_store_property", "test_kernel_route", "test_adaptive")
+          "test_store_property", "test_kernel_route", "test_adaptive",
+          "test_data_and_workloads")
 LEFT_OUT = {
     # the recording observer is not ported yet (ROADMAP §1 item 3)
     "test_kernel_route": ("test_kernel_us_histograms_reach_observer",),
+    # the token pipeline (repro.data) is not ported yet (ROADMAP §1 item 5)
+    "test_data_and_workloads": ("test_pipeline_deterministic_and_skippable",
+                                "test_pipeline_host_sharding_disjoint",
+                                "test_pipeline_tokens_in_vocab"),
 }
+# names the reference still provides, used by the cases left out alone
+EXEMPT = {"test_data_and_workloads": ("PipelineConfig", "TokenPipeline")}
 
 MODULES = {suite: load(suite) for suite in SUITES}
 expose(globals(), MODULES, LEFT_OUT)
@@ -44,10 +56,20 @@ expose(globals(), MODULES, LEFT_OUT)
 
 def test_replayed_suites_bind_the_port():
     """Every class, function and module a suite took from ``repro`` is the
-    port's (``repro.workloads`` aside), ``Store`` is the CPU store and
-    ``AccessTracker`` the CPU tracker, and a helper module's functions
+    port's (the workload generators too), but for the token pipeline's two
+    names, which only the cases left out use; ``Store`` is the CPU store
+    and ``AccessTracker`` the CPU tracker, and a helper module's functions
     drive the port as well."""
-    assert_binds_port({**MODULES, **HELPER_MODULES})
+    assert_binds_port({**MODULES, **HELPER_MODULES}, EXEMPT)
+    workloads = MODULES["test_data_and_workloads"]
+    for name in ("Mixed", "Pareto", "ZipfKeys", "mixed_8k", "pareto_1k"):
+        assert getattr(workloads, name).__module__ == \
+            "repro_torch.workloads.generator"
+    left_out = LEFT_OUT["test_data_and_workloads"]
+    for name, fn in vars(workloads).items():
+        if name.startswith("test_") and name not in left_out:
+            assert not set(fn.__code__.co_names) \
+                & set(EXEMPT["test_data_and_workloads"]), name
     assert MODULES["test_adaptive"].run_fixed_workload is \
         HELPER_MODULES["test_refactor_parity"].run_fixed_workload
     assert MODULES["test_engines_registry"].engreg._REGISTRY is \
