@@ -58,6 +58,27 @@ Phases, each of which raises on failure (exit code != 0):
              read just after (each must be > 0), its rows on one line; and
              each kernel timed at its largest ``deploy`` shape beside its
              plain version, a PyTorch library call and its bound;
+10. serve  — run after 2b: the port's serving path
+             (``repro_torch.serve``, ``repro_torch.models``) with
+             smollm-360m at full width (32 layers, d 960, 15 heads and 5
+             KV heads, d_ff 2,560, vocab 49,152) in bfloat16 from a seeded
+             init, serving the reference launcher's traffic
+             (``launch/serve.py`` defaults: 8 requests of 4-15 prompt
+             tokens, 12 new tokens each, 4 slots, cache_len 128): every
+             request finishes with 12 tokens in the vocabulary, every
+             logit finite, no page live after ``run_gc``; the metadata
+             store's kernel launches over that run (counts zeroed just
+             before); the device's idle share over two decode steps; one
+             decode call timed beside its bound (the bf16 weights, the
+             cache and the logits over 3.35 TB/s).  Then the same weights
+             in float32 (TF32 off) serve 2 requests x 6 tokens on the card
+             and on the CPU: logits within rtol = atol = 2e-3, the same
+             tokens wherever the top-two gap exceeds 2e-3; then 12
+             requests over a durable metadata ``Store`` on the card,
+             abandoned as a crash, ``Store.open``-ed, and a fresh
+             engine's ``restore_page_tables()`` equal to the rids
+             admitted and not finished; the requests never admitted then
+             finish (``[serve]`` line);
 3. main    — one ``scavenger`` Store on the card at a 1 GiB dataset
              (2^20 keys x 1 KiB values, keys drawn from [0, 2^40)): load,
              one uniform update pass, 262,144 multi_get keys and 1,024 scans
@@ -196,6 +217,7 @@ ROOT = Path(__file__).resolve().parent
 # tensor cores, the closest published rate for the kernels' integer work
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+PEAK_BF16_S = 989e12            # bf16 on the tensor cores (the model)
 
 ENGINES = ("rocksdb", "blobdb", "titan", "terarkdb", "scavenger", "hybrid",
            "scavenger_adaptive")
@@ -1725,6 +1747,306 @@ def fleet_run(device, *, dataset_bytes=FLEET_DATASET, batch=4096,
            "launches_cover": "primaries and replicas (process-wide counts)"}
     log("[fleet] " + json.dumps(out))
     return out
+
+# ---------------------------------------------------------- 10. serve
+# the reference launcher's traffic (launch/serve.py defaults)
+SERVE_ARCH = "smollm-360m"
+SERVE_REQUESTS = 8
+SERVE_MAX_NEW = 12
+SERVE_SLOTS = 4
+SERVE_CACHE_LEN = 128
+# the f32 card-vs-CPU check: 2 requests x 6 new tokens, the logits held
+# within SERVE_F32_TOL
+SERVE_F32_REQUESTS = 2
+SERVE_F32_MAX_NEW = 6
+SERVE_F32_TOL = 2e-3            # rtol = atol
+# the device's idle share over decode steps of the traffic
+SERVE_PROFILE_STEPS = 2
+# the durable-metadata run: 12 requests of 4 new tokens, crashed once some
+# have finished and some are in flight, some never admitted
+SERVE_DURABLE_REQUESTS = 12
+SERVE_DURABLE_MAX_NEW = 4
+
+
+def _submit(engine, reqs) -> list:
+    for r in reqs:
+        engine.submit(r)
+    return reqs
+
+
+@contextlib.contextmanager
+def _record_calls(engine):
+    """Within the block, ``engine``'s model and ``_single`` are wrapped
+    (instance attributes, removed on exit) so that each decode call
+    appends {slot, sample, logits (device)} to the list it yields."""
+    calls, step, single = [], engine.model.serve_step, engine._single
+
+    def stepped(*args):
+        logits, cache = step(*args)
+        calls[-1]["logits"] = logits
+        return logits, cache
+
+    def single_call(slot, token, sample=False):
+        calls.append({"slot": slot, "sample": sample})
+        single(slot, token, sample)
+    engine.model.serve_step = stepped
+    engine._single = single_call
+    try:
+        yield calls
+    finally:
+        del engine.model.serve_step, engine._single
+
+
+def _serve_f32_check(model, device) -> dict:
+    """The full-width model's weights cast to float32 on the card and on
+    the CPU, TF32 off: every decode call's logits within SERVE_F32_TOL
+    (rtol = atol), and the same token wherever the top-two gap exceeds it
+    (SERVE_F32_TOL itself);
+    past a token that differs (only where the gap is within it) the two
+    runs decode different inputs, and the comparison ends there."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.serve import draw_requests
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeEngine
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and torch.get_float32_matmul_precision() == "highest",
+            "TF32 matmuls are on: the float32 check needs them off")
+    cfg32 = dataclasses.replace(model.cfg, dtype="float32")
+    state = model.state_dict()
+    runs, secs = [], []
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        m32 = Model(cfg32, device=dev)
+        m32.load_state_dict(state)
+        eng = ServeEngine(m32, batch_slots=SERVE_F32_REQUESTS,
+                          cache_len=SERVE_CACHE_LEN, device=dev)
+        with _record_calls(eng) as calls:
+            reqs = _submit(eng, draw_requests(
+                cfg32.vocab, SERVE_F32_REQUESTS, SERVE_F32_MAX_NEW))
+            eng.run()
+        for c in calls:
+            c["logits"] = c["logits"][:, 0, :cfg32.vocab].float().cpu()
+        runs.append((calls, [r.out for r in reqs]))
+        secs.append(time.perf_counter() - t0)
+        del m32, eng
+    (card, card_out), (cpu, cpu_out) = runs
+    require(len(card) == len(cpu) or card_out != cpu_out,
+            "the card and the CPU made different numbers of decode calls")
+    tol = SERVE_F32_TOL
+    err, min_gap, compared, diverged = 0.0, float("inf"), 0, None
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        require((a["slot"], a["sample"]) == (b["slot"], b["sample"]),
+                f"decode call {i} ran another slot on the card")
+        ga, gb = a["logits"], b["logits"]
+        require(bool(torch.isfinite(ga).all()), "non-finite f32 logits")
+        err = max(err, float((ga - gb).abs().max()))
+        require(torch.allclose(ga, gb, rtol=tol, atol=tol),
+                f"decode call {i}: card and CPU logits differ by more than "
+                f"{tol} (max abs err {err})")
+        compared += 1
+        if not a["sample"]:
+            continue
+        row = gb[a["slot"]]
+        top2 = torch.topk(row, 2).values
+        gap = float(top2[0] - top2[1])
+        min_gap = min(min_gap, gap)
+        if int(ga[a["slot"]].argmax()) != int(row.argmax()):
+            require(gap <= tol,
+                    f"decode call {i}: tokens differ at a top-two gap of "
+                    f"{gap}")
+            diverged = i
+            break
+    if diverged is None:
+        require(card_out == cpu_out, "card and CPU token streams differ")
+    return {"requests": SERVE_F32_REQUESTS, "max_new": SERVE_F32_MAX_NEW,
+            "decode_calls": len(card), "compared_calls": compared,
+            "max_abs_err": err, "tol": tol, "min_top2_gap": min_gap,
+            "tokens_equal": card_out == cpu_out,
+            "diverged_at_call": diverged,
+            "tf32": torch.backends.cuda.matmul.allow_tf32,
+            "card_s": secs[0], "cpu_s": secs[1],
+            "cpu_threads": torch.get_num_threads()}
+
+
+def _serve_durable(model, device) -> dict:
+    """Serve part of the traffic over a durable metadata store on the
+    card, abandon it as a crash, ``Store.open`` it and restore a fresh
+    engine's page tables: exactly the rids admitted and not finished.  The
+    requests never admitted then finish on the fresh engine, and the
+    recovered store ends holding exactly the restored rids."""
+    import numpy as np
+    import torch
+    from repro_torch.core import EngineConfig, Store
+    from repro_torch.launch.serve import draw_requests
+    from repro_torch.serve import ServeEngine
+    specs = draw_requests(model.cfg.vocab, SERVE_DURABLE_REQUESTS,
+                          SERVE_DURABLE_MAX_NEW, seed=1)
+    tmp = tempfile.TemporaryDirectory()
+    path = Path(tmp.name) / "meta"
+    kw = {"batch_slots": SERVE_SLOTS, "cache_len": SERVE_CACHE_LEN,
+          "device": device}
+    meta = Store(EngineConfig.scaled("scavenger", 4 << 20),
+                 durability_dir=path, device=device)
+    eng = ServeEngine(model, meta_store=meta, **kw)
+    reqs = _submit(eng, specs)
+    steps = 0
+    while not (any(r.done for r in reqs)
+               and any(r is not None for r in eng.slot_req)):
+        require(steps < 100, "the durable run never had finished and live "
+                             "requests at once")
+        eng.step()
+        steps += 1
+    live = sorted(r.rid for r in eng.slot_req if r is not None)
+    done = {r.rid for r in reqs if r.done}
+    del eng, meta                           # crash: nothing closed
+    t0 = time.perf_counter()
+    rec = Store.open(path, device=device)
+    open_s = time.perf_counter() - t0
+    require(rec.device == torch.device(device),
+            "the recovered metadata store is off the device")
+    fresh = ServeEngine(model, meta_store=rec, **kw)
+    restored = fresh.restore_page_tables()
+    require(restored == live, f"restored rids {restored}, the rids "
+                              f"admitted and not finished {live}")
+    rest = _submit(fresh, [r for r in specs
+                           if r.rid not in done and r.rid not in live])
+    fresh.run()
+    require(rest and all(r.done and len(r.out) == r.max_new for r in rest),
+            "a request admitted after the recovery did not finish")
+    rows = rec.multi_scan(np.array([0], np.int64), count=1 << 12)[0]
+    require([k for k, _ in rows] == live,
+            "the recovered metadata store does not hold exactly the "
+            "restored rids")
+    rec.close()
+    tmp.cleanup()
+    return {"requests": len(specs), "steps_before_crash": steps,
+            "finished_before_crash": sorted(done), "restored": restored,
+            "finished_after": [r.rid for r in rest], "open_s": open_s}
+
+
+def serve_phase(device="cuda") -> dict:
+    """The port's serving path on the card: smollm-360m at full width in
+    bfloat16 (seeded init), the reference launcher's traffic, then the
+    float32 card-vs-CPU check and the durable-metadata crash; -> metrics."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import draw_requests
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServeEngine
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.d_ff, cfg.vocab, cfg.dtype)
+            == (32, 960, 15, 5, 2560, 49152, "bfloat16"),
+            f"{SERVE_ARCH} is not at its full width in bfloat16")
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    times = {"init_s": time.perf_counter() - t0}
+
+    def engine():
+        return ServeEngine(model, batch_slots=SERVE_SLOTS,
+                           cache_len=SERVE_CACHE_LEN, device=device)
+
+    def traffic():
+        return draw_requests(cfg.vocab, SERVE_REQUESTS, SERVE_MAX_NEW)
+
+    t0 = time.perf_counter()        # warm-up: first-call allocations
+    eng = engine()
+    _submit(eng, [Request(rid=0, prompt=traffic()[0].prompt, max_new=2)])
+    eng.run()
+    times["warmup_s"] = time.perf_counter() - t0
+
+    eng = engine()
+    reqs = _submit(eng, traffic())
+    for fn in kernels.KERNELS + (kernels.rank_probe_segments,):
+        fn.launches = 0
+    with _record_calls(eng) as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    meta_launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    require(all(r.done and len(r.out) == SERVE_MAX_NEW for r in reqs),
+            "a request did not finish with max_new tokens")
+    require(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+            "a token out of the vocabulary")
+    finite = torch.stack([torch.isfinite(c["logits"]).all()
+                          for c in calls]).all()
+    require(bool(finite), "non-finite logits in the full-width run")
+    eng.pager.run_gc()
+    require(eng.pager.stats()["live_pages"] == 0,
+            "pages still live after every request finished and run_gc")
+    tokens = [r.out for r in reqs]
+    n_calls = len(calls)
+    stats = eng.stats()
+    del eng, calls
+
+    # the device's busy share over SERVE_PROFILE_STEPS decode steps of the
+    # same traffic, after the first step's admission and prefill (the
+    # profiler's post-processing grows with the ~2,000 launches a call:
+    # 51 calls took 33 s of it on an H100 machine's host)
+    t0 = time.perf_counter()
+    eng = engine()
+    reqs = _submit(eng, traffic())
+    with _record_calls(eng) as calls:
+        eng.step()
+        n0 = len(calls)
+        busy = idle_window("serve decode", lambda: [
+            eng.step() for _ in range(SERVE_PROFILE_STEPS)])
+    require(all(r.out == t[:len(r.out)] for r, t in zip(reqs, tokens))
+            and any(r.out for r in reqs),
+            "the profiled steps decoded other tokens")
+    busy["decode_calls"] = len(calls) - n0
+    busy["device_ms_per_decode_call"] = \
+        busy["device_busy_s"] * 1e3 / busy["decode_calls"]
+    del eng, calls
+    times["profiled_s"] = time.perf_counter() - t0
+
+    # one decode call in isolation, all slots at position 64
+    t0 = time.perf_counter()
+    cache = model.init_cache(SERVE_SLOTS, SERVE_CACHE_LEN)
+    batch = {"token": torch.ones((SERVE_SLOTS, 1), dtype=torch.int64,
+                                 device=device), "pos": 64}
+    step_ms = call_ms(lambda: model.serve_step(cache, batch), iters=20)
+    n_params = sum(p.numel() for p in model.parameters())
+    nbytes = (sum(p.numel() * p.element_size() for p in model.parameters())
+              + sum(t.numel() * t.element_size() for t in cache.values())
+              + SERVE_SLOTS * cfg.vocab_padded * 2)
+    nops = 2 * n_params * SERVE_SLOTS
+    bound_ms = max(nbytes / PEAK_BYTES_S, nops / PEAK_BF16_S) * 1e3
+    del cache
+    times["decode_call_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    f32 = _serve_f32_check(model, device)
+    times["f32_check_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    durable = _serve_durable(model, device)
+    times["durable_s"] = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    n_tok = SERVE_REQUESTS * SERVE_MAX_NEW
+    out = {"arch": SERVE_ARCH, "dtype": cfg.dtype, "params": n_params,
+           "requests": SERVE_REQUESTS, "tokens": n_tok, "host_s": host_s,
+           "tokens_s": n_tok / host_s, "decode_calls": n_calls,
+           "ms_per_decode_call": host_s * 1e3 / n_calls,
+           "decode_call_ms": step_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes" if nbytes / PEAK_BYTES_S
+           >= nops / PEAK_BF16_S else "operations",
+           "bound_bytes": nbytes, "device_busy": busy,
+           "meta_launches": meta_launches,
+           "meta_launches_note": "the metadata store's kernel launches "
+           "over the timed run (its batches hold 1-4 rids, under "
+           "kernel_min_batch)",
+           "pager": stats, "f32_check": f32, "durable": durable,
+           "times": times, "phase_s": time.perf_counter() - t_phase}
+    log("[serve] " + json.dumps(out))
+    return out
+
 
 # ---------------------------------------------------------- 6. shapes
 def _bound(nbytes: float, nops: float):
@@ -3372,6 +3694,8 @@ def main(argv) -> int:
     mark("kernels")
     bench_recs = bench_phase("cuda")
     mark("bench")
+    serve_phase("cuda")
+    mark("serve")
     cap = Capture()
     main, store = main_run("cuda", capture=cap)
     for name in MAIN_KERNELS:

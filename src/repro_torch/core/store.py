@@ -205,9 +205,10 @@ class Store(ScalarOps):
 
     def ingest_batch(self, kinds: np.ndarray, keys: np.ndarray,
                      vids: np.ndarray, vsizes: np.ndarray) -> None:
-        """Apply records that already own their value identity (WAL
-        replay of an ``"i"`` record; in the reference also shard
-        migration and replica-log replay, DESIGN.md §14).
+        """Apply records that already own their value identity: WAL
+        replay of an ``"i"`` record (``durability/wal.py``), and the
+        fleet's shard migration and replica-log replay
+        (``sharding/store.py``, ``sharding/migrate.py``; DESIGN.md §14).
 
         Same simulated device costs and memtable path as ``write`` — one
         group-committed WAL append, chunked insertion, write-pressure

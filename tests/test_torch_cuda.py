@@ -783,3 +783,44 @@ def test_merge_dedup_merge_path_matches_plain(cuda, na, nb, kind, items):
     keys = got[0].cpu().numpy().view(np.uint32)
     assert (np.diff(keys.astype(np.int64)) >= 0).all()
     assert int(got[3].sum()) == len(np.union1d(a[0], b[0]))
+
+
+def test_serve_engine_on_the_card_matches_the_cpu(cuda):
+    """The port's serving engine on the card (model, cache and metadata
+    store there) against the same engine on the CPU, float32 with TF32 off:
+    every decode call's logits within rtol = atol = 1e-4, the same token
+    streams and the same pager and metadata-store ``stats()``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServeEngine
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config("smollm_360m", smoke=True)
+    assert cfg.dtype == "float32"
+    state = build_model(cfg, seed=0, device="cpu").state_dict()
+    rng = np.random.default_rng(0)
+    specs = [(i, rng.integers(0, cfg.vocab, 5).tolist()) for i in range(5)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, device=dev)
+        model.load_state_dict(state)
+        eng = ServeEngine(model, batch_slots=2, cache_len=64, device=dev)
+        assert eng.meta.device == torch.device(dev)
+        logits, step = [], model.serve_step
+
+        def recorded(*args, step=step, logits=logits):
+            out, cache = step(*args)
+            logits.append(out.float().cpu())
+            return out, cache
+        model.serve_step = recorded
+        reqs = [Request(rid=i, prompt=p, max_new=4) for i, p in specs]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        runs[str(dev)] = ([r.out for r in reqs], logits, eng.stats(),
+                          eng.meta.stats())
+    (cpu_out, cpu_l, cpu_s, cpu_m), (out, lg, s, m) = runs.values()
+    assert out == cpu_out and s == cpu_s and m == cpu_m
+    assert len(lg) == len(cpu_l)
+    for got, want in zip(lg, cpu_l):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-4)

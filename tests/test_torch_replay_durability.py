@@ -12,15 +12,17 @@ so that a test run spread over workers by file gives it a worker.
 Nothing is left out.
 
 ``test_serve_page_table_restore`` drives the port's recovered store
-through the reference's ``repro.serve`` modules, which the port does not
-have yet: it holds the port's serve modules once they land (ROADMAP §1
-item 5).
+through the port's ``repro_torch.serve`` (its ``ServeEngine`` and
+``PagedKVCacheManager``, imported inside the test body).
 """
 
 from __future__ import annotations
 
 from _torch_replay import (CpuShardedStore, assert_binds_port, expose,
                            load)
+
+from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.paged_cache import PagedKVCacheManager
 
 LEFT_OUT: dict = {}
 
@@ -40,3 +42,18 @@ def test_replayed_durability_suite_binds_the_port():
     assert len(fleet) == 3
     assert {f"test_durability__{n}" for n in fleet} <= set(globals())
     assert not LEFT_OUT
+
+
+def test_replayed_serve_restore_binds_the_port_serve_modules():
+    """The imports inside ``test_serve_page_table_restore``'s body go
+    through the suite's own ``__import__``: they bind the port's
+    ``ServeEngine`` and ``PagedKVCacheManager``."""
+    module = MODULES["test_durability"]
+    imp = module.__builtins__["__import__"]
+    engine = imp("repro.serve.engine", module.__dict__, None,
+                 ("ServeEngine",), 0)
+    paged = imp("repro.serve.paged_cache", module.__dict__, None,
+                ("PagedKVCacheManager",), 0)
+    assert engine.ServeEngine is ServeEngine
+    assert paged.PagedKVCacheManager is PagedKVCacheManager
+    assert "test_durability__test_serve_page_table_restore" in globals()
